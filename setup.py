@@ -4,11 +4,13 @@ setup(
     name="syconn_tpu",
     version="0.1.0",
     description="TPU-native connectomics framework (synaptic connectivity inference)",
-    packages=find_packages(include=["syconn_tpu", "syconn_tpu.*"]),
+    packages=find_packages(include=["syconn_tpu", "syconn_tpu.*",
+                                    "syconn_tpu_torch", "syconn_tpu_torch.*"]),
     package_data={
         "syconn_tpu.handler": ["default_config.yml"],
         "syconn_tpu.csrc": ["*.cpp"],
         "syconn_tpu.analysis": ["viewer.html"],
+        "syconn_tpu_torch.ops": ["csrc/*.cu", "csrc/*.cpp"],
         "syconn_tpu.models": ["pretrained/*/arch.json",
                               "pretrained/*/params.msgpack",
                               "pretrained/*/meta.json"],
