@@ -14,7 +14,16 @@ Phases, each failing the run on error:
      (masks) over a seeded 512x512x256 volume in the port's chunk store,
      checking that every kernel of the path was launched the expected
      number of times, that the outputs are well-formed, and that the
-     kernel path agrees with the plain CPU path on a small input.
+     kernel path agrees with the plain CPU path on a small input;
+  4. the contact kernel against its plain version (all integers: equal) at
+     the deployment chunk (256, 256, 128) + halo (6, 6, 3), tile (32, 32),
+     K = 32, stencil (13, 13, 7), and at an awkward shape with overflowing
+     columns;
+  5. the contact slice: ``run_contact_extraction`` over a seeded
+     512x512x256 label volume, streaming (``CsDispatcher``, the CUDA kernel)
+     and from the device-resident store; kernel launches equal the chunks,
+     the two runs' label volumes and counts are equal, and a small two-cube
+     volume agrees between the card and the CPU path.
 
 The line before last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Exits non-zero without a result
@@ -34,7 +43,22 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+# int32 outside the tensor cores: 132 SMs x 64 int32 lanes x 1.98 GHz boost,
+# one operation per lane and clock (half the lanes of the 67 TFLOP/s float32
+# figure, which counts a fused multiply-add as two)
+PEAK_INT32 = 16.7e12
+# integer operations of one candidate step per output voxel in the leanest
+# separable form: 1 compare for the indicator, an add and a subtract per axis
+# for the three running box sums, and compare/compare/select for the update
+CANDIDATE_STEP_OPS = 10
 SOURCE = "syconn_tpu_torch/ops/csrc/conv3d.cu"
+CONTACT_SOURCE = "syconn_tpu_torch/ops/csrc/contacts.cu"
+CONTACT_REPLACES = "syconn_tpu/ops/contacts_pallas.py:45"
+# (label, seg shape incl. halo, stencil, tile_xy, K, label block, on the main path)
+CONTACT_SHAPES = [
+    ("deployment", (268, 268, 134), (13, 13, 7), (32, 32), 32, (48, 48, 96), True),
+    ("awkward", (200, 136, 72), (5, 5, 3), (32, 32), 8, (24, 24, 36), False),
+]
 REPLACES = {
     "conv3x3x3_ln_gelu": "syconn_tpu/ops/conv3d_pallas.py:70",
     "conv_down2x_bias": "syconn_tpu/ops/conv3d_pallas.py:393",
@@ -189,7 +213,80 @@ def phase_kernels(dev):
     return rows
 
 
-def make_volume(path: str, shape, seed: int = 0):
+def blocky_labels(shape, block, seed: int, hot=None):
+    """Seeded label volume (numpy uint64): blocks of ``block`` voxels with
+    ids drawn without replacement below 2**24, a fifth of them background;
+    ``hot`` = (offset, size) fills a region with 4x4x4 blocks of 64 further
+    ids, so that the columns through it overflow the candidate table."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    grid = tuple(-(-s // b) for s, b in zip(shape, block))
+    ids = rng.choice(2**24 - 1, size=int(np.prod(grid)) + 64, replace=False).astype(np.uint64) + 1
+    field = ids[:-64].reshape(grid).copy()
+    field[rng.random(grid) < 0.2] = 0
+    vol = field
+    for ax, b in enumerate(block):
+        vol = np.repeat(vol, b, axis=ax)
+    vol = np.ascontiguousarray(vol[:shape[0], :shape[1], :shape[2]])
+    if hot is not None:
+        off, size = hot
+        small = ids[-64:][rng.integers(0, 64, tuple(-(-s // 4) for s in size))]
+        for ax in range(3):
+            small = np.repeat(small, 4, axis=ax)
+        vol[off[0]:off[0] + size[0], off[1]:off[1] + size[1], off[2]:off[2] + size[2]] = \
+            small[:size[0], :size[1], :size[2]]
+    return vol
+
+
+def phase_contact_kernels(dev, shapes=None):
+    """Phase 4: the contact kernel against its plain version, exactly."""
+    import numpy as np
+    import torch
+
+    from syconn_tpu_torch.ops import contacts_cuda as CC
+
+    int_max = np.iinfo(np.int32).max
+    rows = []
+    for label, shape, stencil, tile_xy, K, block, main in shapes or CONTACT_SHAPES:
+        seg = blocky_labels(shape, block, seed=11)
+        seg_p, offs, cands, overflow, _ = CC._columns_prep(seg, stencil, tile_xy, K)
+        args = [torch.from_numpy(a).to(dev) for a in (seg_p, offs, cands)]
+        lo, hi = CC.detect_cs_columns(*args, stencil, tile_xy)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        lo_p, hi_p = CC.detect_cs_columns_ref(*args, stencil, tile_xy)
+        err = max(int((lo.long() - lo_p.long()).abs().max()), int((hi.long() - hi_p.long()).abs().max()))
+        if err != 0 or not bool(lo.any()):
+            raise AssertionError(f"contact kernel {label}: max |diff| {err} against the plain "
+                                 f"version, any output {bool(lo.any())}")
+        del lo_p, hi_p
+        live = (cands != int_max).sum(axis=1)
+        n_out = int(np.prod(lo.shape))
+        ops = int(lo.shape[1] * lo.shape[2] * lo.shape[3] * int(live.sum())) * CANDIDATE_STEP_OPS
+        nbytes = seg_p.nbytes + 2 * 4 * n_out
+        bound_o = ops / PEAK_INT32 * 1e3
+        bound_b = nbytes / PEAK_BYTES * 1e3
+        k_ms = cuda_ms(lambda: CC.detect_cs_columns(*args, stencil, tile_xy))
+        p_ms = cuda_ms(lambda: CC.detect_cs_columns_ref(*args, stencil, tile_xy), warmup=1, reps=3)
+        row = dict(name="detect_cs_columns", shape=label, seg=list(shape), stencil=list(stencil),
+                   tile_xy=list(tile_xy), K=K, columns=len(offs), main_path=main,
+                   overflow_columns=int(overflow.sum()),
+                   live_candidates_per_column=float(live.mean()),
+                   max_abs_err=err, kernel_ms=k_ms, plain_ms=p_ms, library_ms=None,
+                   library_note="no single PyTorch call computes this function",
+                   bound_ms=max(bound_o, bound_b),
+                   bound_by="operations" if bound_o >= bound_b else "bytes",
+                   bound_bytes=nbytes, bound_int_ops=ops,
+                   int32_ops_per_s=PEAK_INT32, ops_per_candidate_step=CANDIDATE_STEP_OPS,
+                   gvox_candidates_per_s=ops / CANDIDATE_STEP_OPS / k_ms / 1e6)
+        rows.append(row)
+        log("kernel " + json.dumps(row))
+        del lo, hi, args
+    return rows
+
+
+def make_volume(path: str, shape, seed: int = 0, mean: float = 128.0, std: float = 40.0):
     """Seeded EM-like uint8 volume (smoothed noise) in the port's store."""
     import numpy as np
     import torch
@@ -200,7 +297,7 @@ def make_volume(path: str, shape, seed: int = 0):
     g = torch.Generator(device="cuda").manual_seed(seed)
     v = torch.randn((1, 1) + tuple(shape), generator=g, device="cuda")
     v = F.avg_pool3d(v, 5, stride=1, padding=2)
-    v = (128 + 40 * v / v.std()).clamp(0, 255).to(torch.uint8)
+    v = (mean + std * v / v.std()).clamp(0, 255).to(torch.uint8)
     vol = v[0, 0].cpu().numpy()
     cv = ChunkedVolume.create(path, scale=(10, 10, 20), boundary=shape,
                               chunk_shape=(256, 256, 256))
@@ -288,6 +385,122 @@ def phase_slice(dev, work: str):
     return results, launches
 
 
+def _load_labels(out_dir: str, shape):
+    from syconn_tpu_torch.io.chunked import ChunkedVolume
+
+    return {n: ChunkedVolume.open(os.path.join(out_dir, f"{n}_seg")).load_seg(size=shape)
+            for n in ("cs", "syn")}
+
+
+def phase_slice_contacts(dev, work: str, sym_path=None, asym_path=None,
+                         shape=(512, 512, 256), chunk=(256, 256, 128)):
+    """Phase 5: contact-site extraction on the card, streaming through the
+    CUDA kernel and from the device-resident store."""
+    import numpy as np
+    import torch
+
+    from syconn_tpu_torch.exec.exec_syns import run_contact_extraction
+    from syconn_tpu_torch.io import resident
+    from syconn_tpu_torch.io.chunked import ChunkedVolume
+    from syconn_tpu_torch.ops.conv3d import LAUNCHES, reset_launch_counts
+
+    t0 = time.perf_counter()
+    hot = (tuple(s // 5 for s in shape), tuple(max(8, s // 12) for s in shape))
+    seg = blocky_labels(shape, (48, 48, 96), seed=7, hot=hot)
+    seg_path = os.path.join(work, "sv_seg")
+    ChunkedVolume.create(seg_path, scale=(10, 10, 20), boundary=shape,
+                         chunk_shape=(256, 256, 256)).save_seg(seg)
+    sj_path = os.path.join(work, "sj")
+    # ~a quarter of the voxels reach the sj threshold of 0.19 * 255
+    make_volume(sj_path, shape, seed=5, mean=20.0, std=40.0)
+    log(f"slice contacts volumes {shape} written in {time.perf_counter() - t0:.3f} s")
+    n_chunks = int(np.prod([-(-s // c) for s, c in zip(shape, chunk)]))
+    runs = {}
+    for mode in ("stream", "resident"):
+        out_dir = os.path.join(work, f"contacts_{mode}")
+        if mode == "resident" and not resident.put(seg_path, "seg", seg, device=dev):
+            raise AssertionError("the resident store refused the segmentation")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        res = run_contact_extraction(seg_path, out_dir, kd_sj_path=sj_path, kd_sym_path=sym_path,
+                                     kd_asym_path=asym_path, chunk_size=chunk, overwrite=True,
+                                     device=dev)
+        counts = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+        resident.clear()
+        st = res["stats"]
+        if st["path"] != mode or st["dispatched"] != n_chunks or (
+                mode == "stream" and st["host_chunks"] != 0):
+            raise AssertionError(f"contacts {mode}: took path {st['path']}, dispatched "
+                                 f"{st['dispatched']} of {n_chunks} chunks, host {st['host_chunks']}")
+        if mode == "stream" and dev.type == "cuda" and not (
+                counts["detect_cs_columns"] == st["dispatched"] > 0):
+            raise AssertionError(f"contacts stream: kernel launched {counts['detect_cs_columns']} "
+                                 f"times for {st['dispatched']} dispatched chunks")
+        line = dict(st, n_cs=res["n_cs"], n_syn=res["n_syn"], peak_bytes=int(peak),
+                    launches=counts["detect_cs_columns"],
+                    mvox_per_s=float(np.prod(shape)) / st["seconds"] / 1e6,
+                    overflow_share=st["overflow_columns"] / max(1, st["columns"]))
+        runs[mode] = (res, _load_labels(out_dir, shape), line)
+        log(f"slice contacts {mode} " + json.dumps(line))
+    (rs, vs, ls), (rr, vr, _) = runs["stream"], runs["resident"]
+    for n in ("cs", "syn"):
+        if not vs[n].any() or not np.array_equal(vs[n], vr[n]):
+            raise AssertionError(f"contacts: {n}_seg empty or streaming != resident")
+    if (rs["n_cs"], rs["n_syn"]) != (rr["n_cs"], rr["n_syn"]) or min(rs["n_cs"], rs["n_syn"]) <= 0:
+        raise AssertionError(f"contacts: counts stream {rs['n_cs']}/{rs['n_syn']} != resident "
+                             f"{rr['n_cs']}/{rr['n_syn']}")
+    if ls["overflow_columns"] <= 0:
+        raise AssertionError("contacts: no column overflowed, the patch route did not run")
+    log(f"slice contacts: streaming == resident, {rs['n_cs']} cs, {rs['n_syn']} syn, "
+        f"overflow columns {ls['overflow_columns']}/{ls['columns']}")
+    return ls
+
+
+def phase_reference_contacts(dev, work: str):
+    """Two labelled cubes with a gap: the card path against ``device="cpu"``,
+    label volumes and tables equal."""
+    import numpy as np
+
+    from syconn_tpu_torch.exec.exec_syns import run_contact_extraction
+    from syconn_tpu_torch.io.chunked import ChunkedVolume
+
+    sh = (96, 64, 48)
+    seg = np.zeros(sh, np.uint64)
+    seg[4:46, 4:60, 4:44] = 7
+    seg[48:92, 4:60, 4:44] = 9
+    sj = np.zeros(sh, np.uint8)
+    sj[40:54, 20:40, 10:30] = 255
+    paths = {}
+    for name, data in (("seg", seg), ("sj", sj), ("sym", sj * 0), ("asym", sj)):
+        paths[name] = os.path.join(work, f"ref_{name}")
+        cv = ChunkedVolume.create(paths[name], scale=(10, 10, 20), boundary=sh,
+                                  chunk_shape=(64, 64, 64))
+        cv.save_seg(data) if name == "seg" else cv.save_raw(data)
+    out = {}
+    for tag, d in (("card", dev), ("cpu", "cpu")):
+        out_dir = os.path.join(work, f"ref_contacts_{tag}")
+        res = run_contact_extraction(paths["seg"], out_dir, kd_sj_path=paths["sj"],
+                                     kd_sym_path=paths["sym"], kd_asym_path=paths["asym"],
+                                     chunk_size=(32, 64, 48), min_obj_vx={"cs": 1, "syn": 1},
+                                     overwrite=True, device=d)
+        out[tag] = (res, _load_labels(out_dir, sh))
+    (rc, vc), (rh, vh) = out["card"], out["cpu"]
+    for n in ("cs", "syn"):
+        if not vc[n].any() or not np.array_equal(vc[n], vh[n]):
+            raise AssertionError(f"reference contacts: {n}_seg empty or card != cpu")
+        for key in ("ids", "sizes", "rep_coords", "bounding_boxes", "partner_ids"):
+            if not np.array_equal(rc[n][key], rh[n][key]):
+                raise AssertionError(f"reference contacts: {n} table {key} differs")
+    for key in ("asym_prop", "sym_prop"):
+        if not np.array_equal(rc["syn"][key], rh["syn"][key]):
+            raise AssertionError(f"reference contacts: syn {key} differs")
+    log(f"reference contacts: card == cpu, {rc['n_cs']} cs, {rc['n_syn']} syn, partners "
+        f"{rc['cs']['partner_ids'].tolist()}")
+
+
 def phase_reference(dev):
     """Kernel path against the plain CPU path of the same predictor on a
     small input: uint8 probabilities within 2 LSB on >= 99.9% of voxels."""
@@ -330,11 +543,13 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     log(f"kernel build {time.perf_counter() - t0:.3f} s ({build.BUILD_SECONDS})")
-    for line in build.ptxas_log("conv3d").splitlines():
-        if "registers" in line or "spill" in line:
-            log("ptxas " + line.strip())
+    for name in build.SOURCES:
+        for line in build.ptxas_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {name}: " + line.strip())
 
     rows = phase_kernels(dev)
+    contact_rows = phase_contact_kernels(dev)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         phase_reference(dev)
@@ -345,6 +560,9 @@ def main() -> int:
             log(f"slice {t}: {r['mvox_per_s']:.3f} MVx/s end to end, forward alone "
                 f"{fwd[t]['tile_mvox_per_s']:.3f} MVx/s; device busy ~{busy:.4f} of the wall "
                 f"(dispatches x forward_ms / seconds)")
+        contacts = phase_slice_contacts(dev, work, sym_path=os.path.join(work, "sym"),
+                                        asym_path=os.path.join(work, "asym"))
+        phase_reference_contacts(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -361,6 +579,12 @@ def main() -> int:
             bound_ms=per_tile("bound_ms"),
             bound_by="operations" if bf >= 0.5 * per_tile("bound_ms") else "bytes",
             library_ms=per_tile("library_ms")))
+    crow = next(r for r in contact_rows if r["main_path"])
+    kernels.append(dict(
+        name="detect_cs_columns", route="cuda", source=CONTACT_SOURCE, replaces=CONTACT_REPLACES,
+        launches=contacts["launches"], max_abs_err=max(r["max_abs_err"] for r in contact_rows),
+        ms=crow["kernel_ms"], plain_ms=crow["plain_ms"], bound_ms=crow["bound_ms"],
+        bound_by=crow["bound_by"], library_ms=None))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -12,7 +12,8 @@ conv biases bf16, LayerNorm and head parameters f32.
 
 Each wrapper runs its plain version for CPU tensors and launches its kernel
 for CUDA tensors (raising on what the kernel does not take); there is no
-fallback from one to the other. ``LAUNCHES`` counts kernel launches.
+fallback from one to the other. ``LAUNCHES`` counts kernel launches, those of
+the port's other kernels included (each wrapper adds to its own entry).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ LAUNCHES: Dict[str, int] = {
     "conv3x3x3_ln_gelu": 0,
     "conv_down2x_bias": 0,
     "conv_transpose2x_bias": 0,
+    "detect_cs_columns": 0,  # ops/contacts_cuda.py
 }
 
 _MODE_SAME, _MODE_DOWN, _MODE_UP = 0, 1, 2

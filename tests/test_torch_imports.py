@@ -14,7 +14,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "msgpack", "syconn_tpu", "zstandard", "yaml"):
+for name in ("jax", "jaxlib", "flax", "msgpack", "syconn_tpu", "zstandard", "yaml", "h5py",
+             "tqdm"):
     sys.modules[name] = None
 sys.path.insert(0, {root!r})
 import syconn_tpu_torch
@@ -22,7 +23,8 @@ names = [m.name for m in pkgutil.walk_packages(syconn_tpu_torch.__path__, "sycon
 for n in names:
     importlib.import_module(n)
 import chip_smoke
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "msgpack", "syconn_tpu")
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "flax", "msgpack", "syconn_tpu", "h5py", "tqdm")
        and sys.modules[m] is not None]
 assert not bad, bad
 print(len(names))
@@ -36,7 +38,7 @@ def test_port_imports_without_jax_flax_msgpack_or_reference():
     import syconn_tpu_torch
 
     n = len(list(pkgutil.walk_packages(syconn_tpu_torch.__path__, "syconn_tpu_torch.")))
-    assert int(out.stdout.strip().splitlines()[-1]) == n >= 14
+    assert int(out.stdout.strip().splitlines()[-1]) == n >= 28
 
 
 def test_entry_points_without_device_raise(monkeypatch, tmp_path):
@@ -60,6 +62,35 @@ def test_entry_points_without_device_raise(monkeypatch, tmp_path):
         np.zeros((32, 32, 16), np.uint8))
     with pytest.raises(RuntimeError, match="CUDA"):
         predict_synapsetype(kd, {"asym": str(tmp_path / "a"), "sym": str(tmp_path / "s")})
+
+
+def test_contact_entry_points_without_device_raise(monkeypatch, tmp_path):
+    """Step 6a's entry points: CUDA or an explicit ``device="cpu"``."""
+    from syconn_tpu_torch.exec.exec_syns import run_contact_extraction
+    from syconn_tpu_torch.extraction.cs_extraction import extract_contact_sites
+    from syconn_tpu_torch.io.chunked import ChunkedVolume
+    from syconn_tpu_torch.ops.contacts_cuda import detect_cs_cuda
+    from syconn_tpu_torch.ops.contacts_torch import CsDispatcher, detect_cs_torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    seg = np.zeros((20, 20, 12), np.uint32)
+    seg[2:9] = 3
+    seg[10:18] = 5
+    kd = str(tmp_path / "seg")
+    ChunkedVolume.create(kd, scale=(10, 10, 20), boundary=seg.shape).save_seg(seg)
+    calls = [lambda **kw: run_contact_extraction(kd, str(tmp_path / "o1"), **kw),
+             lambda **kw: extract_contact_sites(kd, str(tmp_path / "o2"), **kw),
+             lambda **kw: detect_cs_cuda(seg, (5, 5, 3), (16, 16), 8, **kw),
+             lambda **kw: detect_cs_torch(seg, (5, 5, 3), (16, 16, 8), 8, **kw),
+             lambda **kw: CsDispatcher((5, 5, 3), **kw)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call(device="cuda")
+    res = run_contact_extraction(kd, str(tmp_path / "o3"), stencil=(5, 5, 3),
+                                 min_obj_vx={"cs": 1}, device="cpu")
+    assert res["n_cs"] == 1 and res["cs"]["partner_ids"].tolist() == [[3, 5]]
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

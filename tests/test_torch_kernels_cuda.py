@@ -5,9 +5,10 @@ no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerance as in tests/test_torch_conv3d.py: median relative error < 2e-2
-and fewer than 2% of elements off by more than 10% (same exact bf16
-products, f32 sums in another order, bf16 rounding).
+Tolerance of the convs as in tests/test_torch_conv3d.py: median relative
+error < 2e-2 and fewer than 2% of elements off by more than 10% (same exact
+bf16 products, f32 sums in another order, bf16 rounding). The contact kernel
+computes integers: equal to its plain version, tolerance 0.
 """
 
 import numpy as np
@@ -89,7 +90,85 @@ def test_predictor_kernel_path_matches_cpu_path(dev):
     C.reset_launch_counts()
     got = DenseTilePredictor(model, params, device=dev, **kw).predict_array(vol)
     assert C.LAUNCHES == {"conv3x3x3_ln_gelu": 10, "conv_down2x_bias": 2,
-                          "conv_transpose2x_bias": 2}
+                          "conv_transpose2x_bias": 2, "detect_cs_columns": 0}
     ref = DenseTilePredictor(model, params, device="cpu", **kw).predict_array(vol)
     d = np.abs(got.astype(np.int16) - ref.astype(np.int16))
     assert np.mean(d <= 2) >= 0.999
+
+
+def _blocky(seed, n_labels, grid, block):
+    rng = np.random.default_rng(seed)
+    return np.kron(rng.integers(0, n_labels, size=grid).astype(np.uint32),
+                   np.ones(block, np.uint32))
+
+
+@pytest.mark.parametrize("case", ["tile16", "tile32_ragged", "overflow_k8"])
+def test_contact_kernel_matches_plain_version(dev, case):
+    """``detect_cs_columns`` on the card == its plain version on the same
+    CUDA tensors, and the whole column path == the exact host kernel."""
+    from syconn_tpu_torch.ops import contacts_cuda as CC
+    from syconn_tpu_torch.ops.contacts import detect_cs
+
+    seg, stencil, tile_xy, K = {
+        "tile16": (_blocky(3, 5, (10, 10, 6), (6, 6, 6)), (13, 13, 7), (16, 16), 16),
+        "tile32_ragged": (_blocky(8, 7, (9, 7, 5), (8, 9, 7))[:70, :59, :33], (5, 5, 3),
+                          (32, 32), 16),
+        "overflow_k8": (_blocky(4, 24, (12, 12, 6), (4, 4, 6)), (13, 13, 7), (16, 16), 8),
+    }[case]
+    seg_p, offs, cands, overflow, _ = CC._columns_prep(seg, stencil, tile_xy, K)
+    assert overflow.any() == (case == "overflow_k8")
+    args = [torch.from_numpy(a).to(dev) for a in (seg_p, offs, cands)]
+    C.reset_launch_counts()
+    lo, hi = CC.detect_cs_columns(*args, stencil, tile_xy)
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["detect_cs_columns"] == 1 and sum(C.LAUNCHES.values()) == 1
+    lo_p, hi_p = CC.detect_cs_columns_ref(*args, stencil, tile_xy)
+    assert bool(lo.any()) and torch.equal(lo, lo_p) and torch.equal(hi, hi_p)
+    host = detect_cs(seg, stencil=stencil)
+    assert np.array_equal(host, CC.detect_cs_cuda(seg, stencil, tile_xy, K, device=dev))
+
+
+def test_contact_kernel_rejects_what_it_does_not_take(dev):
+    from syconn_tpu_torch.ops import contacts_cuda as CC
+
+    seg = torch.zeros((80, 80, 8), dtype=torch.int32, device=dev)
+    offs = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    cands = torch.full((1, 4), 2**31 - 1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="tx\\*ty"):
+        CC.detect_cs_columns(seg, offs, cands, (5, 5, 3), (64, 32))
+    with pytest.raises(ValueError, match="sx\\*sy"):
+        CC.detect_cs_columns(seg, offs, cands, (17, 17, 3), (16, 16))
+    with pytest.raises(ValueError, match="contiguous"):
+        CC.detect_cs_columns(seg.permute(1, 0, 2), offs, cands, (5, 5, 3), (16, 16))
+    with pytest.raises(ValueError, match="is on"):
+        CC.detect_cs_columns(seg, offs.cpu(), cands, (5, 5, 3), (16, 16))
+
+
+def test_contact_extraction_card_matches_cpu(dev, tmp_path):
+    """Streaming (CUDA kernel) and resident runs on the card == the CPU run."""
+    from syconn_tpu_torch.exec.exec_syns import run_contact_extraction
+    from syconn_tpu_torch.io import resident
+    from syconn_tpu_torch.io.chunked import ChunkedVolume
+
+    sh = (96, 64, 48)
+    seg = np.zeros(sh, np.uint64)
+    seg[4:46, 4:60, 4:44] = 7
+    seg[48:92, 4:60, 4:44] = 9
+    kd = str(tmp_path / "seg")
+    ChunkedVolume.create(kd, scale=(10, 10, 20), boundary=sh, chunk_shape=(64, 64, 64)).save_seg(seg)
+    kw = dict(chunk_size=(32, 64, 48), min_obj_vx={"cs": 1}, overwrite=True)
+    vols = {}
+    for tag, d in (("cpu", "cpu"), ("stream", dev), ("resident", dev)):
+        C.reset_launch_counts()
+        if tag == "resident":
+            assert resident.put(kd, "seg", seg, device=dev)
+        try:
+            res = run_contact_extraction(kd, str(tmp_path / tag), device=d, **kw)
+        finally:
+            resident.clear()
+        assert res["stats"]["path"] == ("resident" if tag == "resident" else "stream")
+        assert C.LAUNCHES["detect_cs_columns"] == (3 if tag == "stream" else 0)
+        vols[tag] = ChunkedVolume.open(str(tmp_path / tag / "cs_seg")).load_seg(size=sh)
+    assert vols["cpu"].any()
+    assert np.array_equal(vols["cpu"], vols["stream"])
+    assert np.array_equal(vols["cpu"], vols["resident"])
