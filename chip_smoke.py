@@ -5,11 +5,17 @@ Usage: ``python3 chip_smoke.py`` from the repository root, on a machine with
 one CUDA card (Hopper: the kernels are built for sm_90a at first use).
 
 Phases, each failing the run on error:
-  1. card name and power limit, versions, kernel build time;
+  1. card name and power limit, versions, kernel build time, and per kernel
+     the registers, spills and barriers ptxas reports (the wgmma kernels use
+     barrier 0 only, once, after the mbarrier init; a ptxas note that it
+     serialised the wgmmas fails the run);
   2. every conv kernel against its plain PyTorch version at every shape of
      the dense-prediction main path (syntype tile (256, 256, 128) + halo
      (32, 32, 16) -> patched (80, 80, 80)), with kernel, plain-version and
-     library (cuDNN, no epilogue) times and the roofline bound;
+     library (cuDNN, no epilogue) times and the roofline bound, and at the
+     shapes the wgmma kernels' tiling could get wrong (ragged extents, batch
+     2, every Cout, odd transpose extents, the head that falls to the
+     mma.sync kernel);
   3. the slice: ``predict_synapsetype`` (probs) and ``predict_myelin``
      (masks) over a seeded 512x512x256 volume in the port's chunk store,
      checking that every kernel of the path was launched the expected
@@ -51,7 +57,11 @@ PEAK_INT32 = 16.7e12
 # separable form: 1 compare for the indicator, an add and a subtract per axis
 # for the three running box sums, and compare/compare/select for the update
 CANDIDATE_STEP_OPS = 10
-SOURCE = "syconn_tpu_torch/ops/csrc/conv3d.cu"
+SOURCES = {
+    "conv3x3x3_ln_gelu": "syconn_tpu_torch/ops/csrc/conv3d_wgmma.cu",
+    "conv_down2x_bias": "syconn_tpu_torch/ops/csrc/conv3d.cu",
+    "conv_transpose2x_bias": "syconn_tpu_torch/ops/csrc/conv3d_wgmma.cu",
+}
 CONTACT_SOURCE = "syconn_tpu_torch/ops/csrc/contacts.cu"
 CONTACT_REPLACES = "syconn_tpu/ops/contacts_pallas.py:45"
 # (label, seg shape incl. halo, stencil, tile_xy, K, label block, on the main path)
@@ -64,7 +74,8 @@ REPLACES = {
     "conv_down2x_bias": "syconn_tpu/ops/conv3d_pallas.py:393",
     "conv_transpose2x_bias": "syconn_tpu/ops/conv3d_pallas.py:261",
 }
-# (kernel, spatial edge, cin, cout, head width, epilogue, launches per syntype tile)
+# (kernel, spatial edge or (B, X, Y, Z), cin, cout, head width, epilogue,
+#  launches per syntype tile)
 SHAPES = [
     ("conv3x3x3_ln_gelu", 80, 32, 64, 0, "ln_gelu", 1),
     ("conv3x3x3_ln_gelu", 80, 64, 64, 0, "ln_gelu", 1),
@@ -79,6 +90,13 @@ SHAPES = [
     ("conv_down2x_bias", 40, 128, 256, 0, "bias", 1),
     ("conv_transpose2x_bias", 20, 256, 128, 0, "bias", 1),
     ("conv_transpose2x_bias", 40, 128, 64, 0, "bias", 1),
+    # off the main path: what only the brick tiling of the wgmma kernels can get wrong
+    ("conv3x3x3_ln_gelu", (1, 21, 13, 7), 64, 64, 0, "ln_gelu", 0),     # ragged
+    ("conv3x3x3_ln_gelu", (2, 24, 20, 12), 64, 64, 96, "ln_gelu", 0),   # batch 2, head
+    ("conv3x3x3_ln_gelu", (1, 40, 40, 40), 64, 32, 0, "ln_gelu", 0),    # Cout 32
+    ("conv3x3x3_ln_gelu", (1, 21, 20, 19), 40, 256, 0, "ln_gelu", 0),   # Cout 256, Cin % 32 != 0
+    ("conv3x3x3_ln_gelu", (1, 12, 12, 12), 32, 256, 96, "ln_gelu", 0),  # head on the mma.sync kernel
+    ("conv_transpose2x_bias", (2, 11, 9, 13), 128, 64, 0, "bias", 0),   # odd extents, batch 2
 ]
 PER_TILE = {"syntype": {"conv3x3x3_ln_gelu": 10, "conv_down2x_bias": 2, "conv_transpose2x_bias": 2},
             "myelin": {"conv3x3x3_ln_gelu": 6, "conv_down2x_bias": 1, "conv_transpose2x_bias": 1}}
@@ -95,8 +113,10 @@ def smi() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, warmup: int = 2, reps: int = 7) -> float:
-    """Median of ``reps`` single-call CUDA-event timings after warm-up."""
+def cuda_ms(fn, warmup: int = 2, reps: int = 7, inner: int = 8) -> float:
+    """Device time of one call: median over ``reps`` CUDA-event timings of
+    ``inner`` calls enqueued back to back (so that the host's time to launch
+    a call hides behind the card's work on the one before), after warm-up."""
     import torch
 
     for _ in range(warmup):
@@ -105,11 +125,13 @@ def cuda_ms(fn, warmup: int = 2, reps: int = 7) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        fn()  # the card is busy when the first event is recorded
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     times.sort()
     return times[len(times) // 2]
 
@@ -142,7 +164,9 @@ def phase_kernels(dev):
     rows = []
     for name, n, cin, cout, nh, epi, per_tile in SHAPES:
         up = name == "conv_transpose2x_bias"
-        x = torch.randn((1, n, n, n, cin), generator=gen).to(dev, torch.bfloat16)
+        dims = (1, n, n, n) if isinstance(n, int) else tuple(n)
+        vox = dims[0] * dims[1] * dims[2] * dims[3]
+        x = torch.randn(dims + (cin,), generator=gen).to(dev, torch.bfloat16)
         w = (torch.randn((27, cin, cout), generator=gen) / (27 * cin) ** 0.5).to(dev, torch.bfloat16)
         b = (0.1 * torch.randn((cout,), generator=gen)).to(dev, torch.bfloat16)
         g = (1 + 0.1 * torch.randn((cout,), generator=gen)).to(dev)
@@ -157,7 +181,7 @@ def phase_kernels(dev):
 
             def plain():
                 return C.conv3x3x3_ln_gelu_ref(x, w, b, g, beta, epilogue=epi, head_w=hw, head_b=hb)
-            s_out = n ** 3
+            s_out = vox
             flops = 2 * 27 * s_out * cin * cout + 2 * s_out * cout * nh
             out_bytes = s_out * (4 * nh if nh else 2 * cout)
             lib_args = dict(stride=1, padding=1)
@@ -167,7 +191,7 @@ def phase_kernels(dev):
 
             def plain():
                 return C.conv_down2x_bias_ref(x, w, b)
-            s_out = (n // 2) ** 3
+            s_out = vox // 8
             flops = 2 * 27 * s_out * cin * cout
             out_bytes = s_out * 2 * cout
             lib_args = dict(stride=2, padding=1)
@@ -177,19 +201,19 @@ def phase_kernels(dev):
 
             def plain():
                 return C.conv_transpose2x_bias_ref(x, w, b)
-            flops = 2 * 27 * n ** 3 * cin * cout
-            out_bytes = (2 * n) ** 3 * 2 * cout
+            flops = 2 * 27 * vox * cin * cout
+            out_bytes = 8 * vox * 2 * cout
             lib_args = None
         got = kern()
         torch.cuda.synchronize()
         ref = plain()
-        max_err, med, frac = rel_check(got, ref, f"{name} {n}^3 {cin}->{cout} nh={nh} {epi}")
+        max_err, med, frac = rel_check(got, ref, f"{name} {dims} {cin}->{cout} nh={nh} {epi}")
         del got, ref
         in_bytes = x.numel() * 2 + w.numel() * 2 + cout * 2 + (cout * nh * 4 if nh else 0)
         bound_f = flops / PEAK_FLOPS * 1e3
         bound_b = (in_bytes + out_bytes) / PEAK_BYTES * 1e3
         k_ms = cuda_ms(kern)
-        p_ms = cuda_ms(plain, warmup=1, reps=5)
+        p_ms = cuda_ms(plain, warmup=1, reps=3, inner=2)
         # library yardstick: cuDNN bf16 channels-last conv of the same shape
         # and cost, without the fused epilogue; timed only, never used
         xc = x.permute(0, 4, 1, 2, 3)
@@ -201,7 +225,15 @@ def phase_kernels(dev):
             l_ms = cuda_ms(lambda: F.conv_transpose3d(xc, wt, stride=2, padding=1, output_padding=1))
         else:
             l_ms = cuda_ms(lambda: F.conv3d(xc, wl, **lib_args))
+        plan = None
+        if name != "conv_down2x_bias":
+            plan = C.tile_plan("up" if up else "same", cin, cout, nh)
+        if per_tile > 0 and name != "conv_down2x_bias" and plan is None:
+            raise AssertionError(f"{name} {dims} {cin}->{cout} nh={nh}: a main-path shape must "
+                                 f"take the wgmma kernel")
         row = dict(name=name, n=n, cin=cin, cout=cout, nh=nh, epilogue=epi, per_tile=per_tile,
+                   kernel="mma.sync" if plan is None else "wgmma",
+                   smem_bytes=None if plan is None else plan["smem_bytes"],
                    max_abs_err=max_err, median_rel=med, frac_rel_gt_0p1=frac,
                    kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                    bound_ms=max(bound_f, bound_b), bound_by="operations" if bound_f >= bound_b else "bytes",
@@ -211,6 +243,41 @@ def phase_kernels(dev):
         del x, w
         torch.cuda.empty_cache()
     return rows
+
+
+def phase_repack(dev):
+    """Cost of the wrappers' one-time weight repack (K-major stage images, the
+    head's three bf16 parts) for the packaged syntype model, on the card."""
+    import torch
+
+    from syconn_tpu_torch.models.convert import kernel_taps
+    from syconn_tpu_torch.models.io import load_model, packaged_model_path
+    from syconn_tpu_torch.ops import conv3d as C
+
+    _, params = load_model(packaged_model_path("syntype"))
+    convs, head = [], None
+
+    def walk(tree):
+        nonlocal head
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                walk(val)
+            elif key == "kernel" and tuple(val.shape[:3]) == (3, 3, 3):
+                convs.append(kernel_taps(val).to(dev))
+            elif key == "kernel":
+                head = torch.as_tensor(val).reshape(val.shape[-2], val.shape[-1]).float().to(dev)
+
+    walk(params)
+
+    def repack():
+        for w in convs:
+            C.pack_conv_weight(w)
+        C.pack_head(head)
+
+    ms = cuda_ms(repack, warmup=1, reps=3, inner=2)
+    log("repack " + json.dumps(dict(model="syntype", conv_weights=len(convs), head=list(head.shape),
+                                   ms=ms, bytes=sum(w.numel() * 2 for w in convs))))
+    return ms
 
 
 def blocky_labels(shape, block, seed: int, hot=None):
@@ -268,7 +335,7 @@ def phase_contact_kernels(dev, shapes=None):
         bound_o = ops / PEAK_INT32 * 1e3
         bound_b = nbytes / PEAK_BYTES * 1e3
         k_ms = cuda_ms(lambda: CC.detect_cs_columns(*args, stencil, tile_xy))
-        p_ms = cuda_ms(lambda: CC.detect_cs_columns_ref(*args, stencil, tile_xy), warmup=1, reps=3)
+        p_ms = cuda_ms(lambda: CC.detect_cs_columns_ref(*args, stencil, tile_xy), warmup=1, reps=3, inner=1)
         row = dict(name="detect_cs_columns", shape=label, seg=list(shape), stencil=list(stencil),
                    tile_xy=list(tile_xy), K=K, columns=len(offs), main_path=main,
                    overflow_columns=int(overflow.sum()),
@@ -320,7 +387,7 @@ def phase_forward(dev, task: str):
                               mode="probs" if thr is None else "masks", device=dev)
     g = torch.Generator(device="cuda").manual_seed(2)
     x = torch.randint(0, 256, pred._in_shape, generator=g, device="cuda", dtype=torch.uint8)
-    ms = cuda_ms(lambda: pred._forward(x), warmup=2, reps=5)
+    ms = cuda_ms(lambda: pred._forward(x), warmup=2, reps=5, inner=4)
     flops = unet_flops(model, pred._in_shape)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -544,11 +611,18 @@ def main() -> int:
     build.build_all()
     log(f"kernel build {time.perf_counter() - t0:.3f} s ({build.BUILD_SECONDS})")
     for name in build.SOURCES:
+        fn = ""
         for line in build.ptxas_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {name}: " + line.strip())
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1][-44:]
+            elif "Used " in line or "spill" in line:
+                log(f"ptxas {name} ..{fn}: " + line.strip())
+            elif "Potential Performance Loss" in line:
+                # serialised wgmmas would slow the main loop without failing anything else
+                raise AssertionError(f"ptxas {name}: " + line.strip())
 
     rows = phase_kernels(dev)
+    phase_repack(dev)
     contact_rows = phase_contact_kernels(dev)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -572,7 +646,7 @@ def main() -> int:
         per_tile = lambda key: sum(r[key] * r["per_tile"] for r in rs)  # noqa: E731
         bf = sum(r["bound_ms"] * r["per_tile"] for r in rs if r["bound_by"] == "operations")
         kernels.append(dict(
-            name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
+            name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
             launches=launches[name],
             max_abs_err=max(r["max_abs_err"] for r in rows if r["name"] == name),
             ms=per_tile("kernel_ms"), plain_ms=per_tile("plain_ms"),

@@ -41,6 +41,11 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
         "conv3d_launch": ([_I, _I] + [_P] * 8 + [_I] * 7 + [_P], _I),
         "conv3d_error_string": ([_I], ctypes.c_char_p),
     },
+    "conv3d_wgmma": {
+        "conv3d_wgmma_launch": ([_I, _I] + [_P] * 8 + [_I] * 7 + [_P], _I),
+        "conv3d_wgmma_plan": ([_I, _I, _I, _I], _I),
+        "conv3d_wgmma_error_string": ([_I], ctypes.c_char_p),
+    },
     "contacts": {
         "detect_cs_columns_launch": ([_P] * 5 + [_I] * 10 + [_P], _I),
         "contacts_error_string": ([_I], ctypes.c_char_p),

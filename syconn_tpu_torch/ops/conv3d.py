@@ -3,12 +3,19 @@ and their plain PyTorch versions.
 
 Counterparts of the Pallas kernels in ``syconn_tpu/ops/conv3d_pallas.py``
 (``conv3x3x3_ln_gelu`` :70, ``conv_transpose2x_bias`` :261,
-``conv_down2x_bias`` :393); the kernels live in ``csrc/conv3d.cu``.
+``conv_down2x_bias`` :393). The SAME conv and the transpose run the wgmma
+kernels of ``csrc/conv3d_wgmma.cu``; the stride-2 conv, and a SAME conv whose
+head does not fit the wgmma kernel's shared memory, the mma.sync kernel of
+``csrc/conv3d.cu``.
 
 Layouts follow the JAX package: activations channels-last
 ``(B, X, Y, Z, C)`` bf16, conv kernels as ``(27, Cin, Cout)`` bf16 (the flax
 DHWIO kernel with its three spatial axes flattened, tap = dx*9 + dy*3 + dz),
 conv biases bf16, LayerNorm and head parameters f32.
+
+The wgmma kernels read the weights as K-major stage images and the head as
+three bf16 parts (:func:`pack_conv_weight`, :func:`pack_head`); the wrappers
+keep the public layout and repack once per parameter tensor.
 
 Each wrapper runs its plain version for CPU tensors and launches its kernel
 for CUDA tensors (raising on what the kernel does not take); there is no
@@ -18,7 +25,9 @@ the port's other kernels included (each wrapper adds to its own entry).
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import functools
+import weakref
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,6 +36,7 @@ __all__ = [
     "LAUNCHES", "reset_launch_counts",
     "conv3x3x3_ln_gelu", "conv_down2x_bias", "conv_transpose2x_bias",
     "conv3x3x3_ln_gelu_ref", "conv_down2x_bias_ref", "conv_transpose2x_bias_ref",
+    "pack_conv_weight", "unpack_conv_weight", "split_head", "pack_head", "tile_plan",
 ]
 
 LAUNCHES: Dict[str, int] = {
@@ -113,6 +123,115 @@ def conv_transpose2x_bias_ref(x, w, b):
     return _bias_bf16(_conv_f32(zero_stuff(x), w), b)
 
 
+# --------------------------------------------- operand images of the kernels
+_KC = 32            # input channels per halo slice and weight stage
+_HEAD_CHUNK = 32    # logits per head product; Nh is padded to a multiple
+SMEM_LIMIT = 232448  # dynamic shared memory a block may use on the H100
+
+
+def pack_conv_weight(w: torch.Tensor) -> torch.Tensor:
+    """(27, Cin, Cout) -> (27, ceil(Cin / 32), 4, Cout, 8): per tap and
+    32-channel slice one contiguous K-major stage image [8-channel group]
+    [Cout][8 channels], Cin zero-padded to a multiple of 32."""
+    taps, cin, cout = w.shape
+    nk = -(-cin // _KC)
+    wp = w.new_zeros((taps, nk * _KC, cout))
+    wp[:, :cin] = w
+    return wp.reshape(taps, nk, _KC // 8, 8, cout).permute(0, 1, 2, 4, 3).contiguous()
+
+
+def unpack_conv_weight(wp: torch.Tensor, cin: int) -> torch.Tensor:
+    """Inverse of :func:`pack_conv_weight`."""
+    taps, nk, _, cout, _ = wp.shape
+    return wp.permute(0, 1, 2, 4, 3).reshape(taps, nk * _KC, cout)[:, :cin].contiguous()
+
+
+def split_head(head_w: torch.Tensor) -> torch.Tensor:
+    """f32 (Cout, Nh) -> bf16 (3, Cout, Nh) with hi + mid + lo == head_w to
+    f32's resolution: each part is the bf16 rounding of what the earlier
+    parts left (3 x 8 mantissa bits cover f32's 24)."""
+    rest = head_w.float()
+    parts = []
+    for _ in range(3):
+        part = rest.to(_BF16)
+        parts.append(part)
+        rest = rest - part.float()
+    return torch.stack(parts)
+
+
+def pack_head(head_w: torch.Tensor) -> torch.Tensor:
+    """f32 (Cout, Nh) -> bf16 (3, Cout / 8, Nhp, 8): the three parts of
+    :func:`split_head`, K-major, Nh zero-padded to a multiple of 32."""
+    cout, nh = head_w.shape
+    nhp = -(-nh // _HEAD_CHUNK) * _HEAD_CHUNK
+    parts = head_w.new_zeros((3, cout, nhp), dtype=_BF16)
+    parts[:, :, :nh] = split_head(head_w)
+    return parts.reshape(3, cout // 8, 8, nhp).permute(0, 1, 3, 2).contiguous()
+
+
+def tile_plan(mode: str, cin: int, cout: int, nh: int = 0) -> Optional[Dict[str, int]]:
+    """The wgmma kernel's tile plan for one shape, mirroring ``plan_of`` and
+    ``make_layout`` of ``csrc/conv3d_wgmma.cu``: brick, halo buffers, ring
+    depth, steps of the main loop and shared-memory bytes; None when the
+    kernel does not take the shape (a head too wide for its shared memory)."""
+    if mode not in ("same", "up") or cout not in _COUTS or cin <= 0 or cin % 8:
+        raise ValueError(f"no tile plan for mode={mode!r} Cin={cin} Cout={cout}")
+    if nh and mode != "same":
+        raise ValueError("only the SAME conv fuses a head")
+    if mode == "same":
+        mt = {256: 1, 128: 2}.get(cout, 4)      # 64-row tiles per consumer warpgroup
+    else:
+        mt = 1 if cout >= 128 else 2
+    bx = 2 * mt
+    e = 2 if mode == "same" else 1
+    hp = (bx + e) * (8 + e) * (8 + e)           # halo positions
+    ps = hp + (10 - hp % 8) % 8                 # plane stride, 16-byte units
+    halo_bytes = 4 * ps * 16
+    stage_bytes = _KC * cout * 2
+    nk = -(-cin // _KC)
+    nhp = -(-nh // _HEAD_CHUNK) * _HEAD_CHUNK
+    # per consumer warp 16 staged output rows (bf16, or 32 f32 logits), and with a
+    # head the three bf16 parts of its weight
+    rows = 16 * (cout * 2 + 16)
+    if nh:
+        rows = max(rows, 16 * (_HEAD_CHUNK + 4) * 4)
+    tail = 8 * rows + 3 * cout * nhp * 2
+
+    def total(halo_bufs, stages):
+        return (640 + -(-cout * 10 // 128) * 128 + halo_bufs * halo_bytes
+                + stages * stage_bytes + tail)
+
+    halo_bufs = 2       # slices stream; the transpose keeps all resident when they fit
+    if mode == "up" and 2 < nk <= 16 and total(nk, 4) <= SMEM_LIMIT:
+        halo_bufs = nk
+    stages = min(16, (SMEM_LIMIT - total(halo_bufs, 0)) // stage_bytes)
+    if stages < 2:
+        return None
+    return dict(brick=(bx, 8, 8), rows=bx * 64, halo_bufs=halo_bufs, stages=stages,
+                halo_bytes=halo_bytes, stage_bytes=stage_bytes, steps=27 * nk, nhp=nhp,
+                smem_bytes=total(halo_bufs, stages))
+
+
+@functools.lru_cache(maxsize=None)
+def _takes_wgmma(mode: str, cin: int, cout: int, nh: int) -> bool:
+    return tile_plan(mode, cin, cout, nh) is not None
+
+
+# id(parameter) -> (weak reference, version, packed image); an entry dies with
+# its tensor and is rebuilt when the tensor was written in place
+_PACKED: Dict[Tuple[int, str], tuple] = {}
+
+
+def _packed(t: torch.Tensor, kind: str, pack) -> torch.Tensor:
+    key = (id(t), kind)
+    hit = _PACKED.get(key)
+    if hit is not None and hit[0]() is t and hit[1] == t._version:
+        return hit[2]
+    image = pack(t)
+    _PACKED[key] = (weakref.ref(t, lambda _, k=key: _PACKED.pop(k, None)), t._version, image)
+    return image
+
+
 # ------------------------------------------------------------------ kernels
 def _check(t: Optional[torch.Tensor], name: str, dtype, shape, device):
     if t is None:
@@ -138,15 +257,26 @@ def _launch(mode, epi, x, w, b, g, beta, hw, hb, out, nh):
 
     B, X, Y, Z, cin = x.shape
     cout = w.shape[2]
-    lib = library("conv3d")
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    wgmma = mode != _MODE_DOWN and _takes_wgmma(
+        "same" if mode == _MODE_SAME else "up", cin, cout, nh)
     with torch.cuda.device(x.device):
-        rc = lib.conv3d_launch(
-            mode, epi, _ptr(x), _ptr(w), _ptr(b), _ptr(g), _ptr(beta), _ptr(hw),
-            _ptr(hb), _ptr(out), B, X, Y, Z, cin, cout, nh, stream)
+        if wgmma:
+            lib = library("conv3d_wgmma")
+            wp = _packed(w, "conv", pack_conv_weight)
+            hp = None if hw is None else _packed(hw, "head", pack_head)
+            rc = lib.conv3d_wgmma_launch(
+                mode, epi, _ptr(x), _ptr(wp), _ptr(b), _ptr(g), _ptr(beta), _ptr(hp),
+                _ptr(hb), _ptr(out), B, X, Y, Z, cin, cout, nh, stream)
+            err = lib.conv3d_wgmma_error_string
+        else:
+            lib = library("conv3d")
+            rc = lib.conv3d_launch(
+                mode, epi, _ptr(x), _ptr(w), _ptr(b), _ptr(g), _ptr(beta), _ptr(hw),
+                _ptr(hb), _ptr(out), B, X, Y, Z, cin, cout, nh, stream)
+            err = lib.conv3d_error_string
     if rc != 0:
-        raise RuntimeError(
-            f"conv3d kernel launch failed: {lib.conv3d_error_string(rc).decode()}")
+        raise RuntimeError(f"conv3d kernel launch failed: {err(rc).decode()}")
 
 
 def _check_conv(x, w, b):
@@ -236,7 +366,8 @@ def conv_down2x_bias(x, w, b):
 
 def conv_transpose2x_bias(x, w, b):
     """flax ``nn.ConvTranspose`` (SAME, k=3, s=2) + bias, computed as the 8
-    sub-pixel output phases (each reads only its own taps).
+    sub-pixel output phases (each reads only its own taps; one block of the
+    kernel computes all eight for its brick).
 
     x: (B, X, Y, Z, Cin) bf16; w: (27, Cin, Cout) bf16; b: (Cout,) bf16.
     Returns (B, 2X, 2Y, 2Z, Cout) bf16."""

@@ -1,15 +1,20 @@
-// Hand-written Hopper (sm_90a) kernels for the dense U-Net's 3x3x3 convolutions.
+// Hand-written Hopper (sm_90a) mma.sync kernels for the dense U-Net's 3x3x3
+// convolutions: the stride-2 conv, and the SAME conv for the shapes the wgmma
+// kernel of conv3d_wgmma.cu does not take.
 //
-// Replaces the three Pallas TPU kernels of syconn_tpu/ops/conv3d_pallas.py:
-//   * conv3x3x3_ln_gelu      (:70)  SAME 3x3x3 conv + bf16 bias, then either
-//                                    nothing ("bias"), or LayerNorm + tanh-GELU,
-//                                    optionally followed by a fused f32 1x1x1 head;
+// Replaces Pallas TPU kernels of syconn_tpu/ops/conv3d_pallas.py:
 //   * conv_down2x_bias       (:393) stride-2 SAME conv + bias (XLA SAME for even
 //                                    extents: pad low 0, high 1);
-//   * conv_transpose2x_bias  (:261) flax ConvTranspose (SAME, k3, s2) + bias as
-//                                    8 sub-pixel output phases.
+//   * conv3x3x3_ln_gelu      (:70)  SAME 3x3x3 conv + bf16 bias, then either
+//                                    nothing ("bias"), or LayerNorm + tanh-GELU,
+//                                    optionally followed by a fused f32 1x1x1 head:
+//                                    served here only when the head's three bf16
+//                                    parts do not fit the wgmma kernel's shared
+//                                    memory (e.g. Cout 256 with 96 logits); no
+//                                    shape of the dense-prediction main path.
+// (conv_transpose2x_bias (:261) runs in conv3d_wgmma.cu for every shape.)
 //
-// One implicit-GEMM template with three index modes. A block owns a 4x4x4
+// One implicit-GEMM template with two index modes. A block owns a 4x4x4
 // brick of output rows (64 rows) times ALL output channels (<= 256), so the
 // per-position LayerNorm over channels finishes in the epilogue and the conv
 // output never round-trips device memory. Per 32-channel slice of the input
@@ -21,9 +26,10 @@
 //
 // Bound on the H100: the 3x3x3 convs at the main-path widths do ~27*Cout/2
 // FLOP per input byte, far above the ~295 FLOP/byte ridge, so they are bound
-// by tensor-core operations. This first version uses mma.sync (not wgmma/TMA)
-// and a 64-row block, so it runs well below that bound; the design keeps the
-// halo in shared memory to spend its bandwidth on operands that are reused.
+// by tensor-core operations. This kernel uses mma.sync (not wgmma) with a
+// barrier per tap and a 64-row block, so it runs well below that bound (3-4x
+// slower than cuDNN); the design keeps the halo in shared memory to spend its
+// bandwidth on operands that are reused.
 //
 // Epilogue op order follows the Pallas kernel exactly (conv3d_pallas.py:196-214):
 //   round f32 acc to bf16 -> add bf16 bias in bf16 -> [LayerNorm in f32,
@@ -44,7 +50,7 @@ constexpr int BR = 4;         // brick edge
 constexpr int BM = BR * BR * BR;  // 64 output rows per block
 constexpr int NTHREADS = 256; // 8 warps: 4 along rows (16 each) x 2 along channels
 
-enum Mode { MODE_SAME = 0, MODE_DOWN = 1, MODE_UP = 2 };
+enum Mode { MODE_SAME = 0, MODE_DOWN = 1 };
 enum Epi { EPI_BIAS = 0, EPI_LN_GELU = 1 };
 
 struct Args {
@@ -57,8 +63,7 @@ struct Args {
   const float* head_b;        // (nh) or null
   void* out;                  // bf16 (B, OX, OY, OZ, cout) or f32 (..., nh)
   int B, X, Y, Z;             // input extents
-  int RX, RY, RZ;             // row-space extents (output, or half-res for UP)
-  int OX, OY, OZ;             // output extents
+  int RX, RY, RZ;             // output extents (the row space)
   int cin, cout, nh, epi;
   int nbx, nby, nbz;          // bricks per axis
 };
@@ -73,11 +78,6 @@ template <> struct Geo<MODE_SAME> {
 template <> struct Geo<MODE_DOWN> {
   static constexpr int HE = 2 * BR + 1, S = 2, LO = 0;
   __device__ static int off(int d) { return d; }
-};
-template <> struct Geo<MODE_UP> {
-  // phase 0 of an axis uses taps {0: x[u-1], 2: x[u]}, phase 1 uses {1: x[u]}
-  static constexpr int HE = BR + 1, S = 1, LO = 1;
-  __device__ static int off(int d) { return d == 0 ? 0 : 1; }
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -117,25 +117,12 @@ __device__ __forceinline__ float gelu_tanh(float y) {
   return y * (0.5f * (1.0f + tanhf(k * (y + 0.044715f * (y * y * y)))));
 }
 
-// Tap ti of the block's tap list -> flat weight tap t and halo index delta.
+// Flat weight tap t -> halo index delta.
 template <int MODE>
-__device__ __forceinline__ void tap_of(int ti, int phase, int& t, int& delta) {
+__device__ __forceinline__ int tap_delta(int t) {
   constexpr int HE = Geo<MODE>::HE;
-  int dx, dy, dz;
-  if (MODE == MODE_UP) {
-    const int px = (phase >> 2) & 1, py = (phase >> 1) & 1, pz = phase & 1;
-    const int ny = py ? 1 : 2, nz = pz ? 1 : 2;
-    const int iz = ti % nz, iy = (ti / nz) % ny, ix = ti / (nz * ny);
-    dx = px ? 1 : (ix ? 2 : 0);
-    dy = py ? 1 : (iy ? 2 : 0);
-    dz = pz ? 1 : (iz ? 2 : 0);
-  } else {
-    dx = ti / 9;
-    dy = (ti / 3) % 3;
-    dz = ti % 3;
-  }
-  t = dx * 9 + dy * 3 + dz;
-  delta = (Geo<MODE>::off(dx) * HE + Geo<MODE>::off(dy)) * HE + Geo<MODE>::off(dz);
+  const int dx = t / 9, dy = (t / 3) % 3, dz = t % 3;
+  return (Geo<MODE>::off(dx) * HE + Geo<MODE>::off(dy)) * HE + Geo<MODE>::off(dz);
 }
 
 template <int MODE, int NT>
@@ -156,15 +143,11 @@ __global__ void __launch_bounds__(NTHREADS) conv3d_kernel(const Args a) {
   const int bz = blk % a.nbz; blk /= a.nbz;
   const int by = blk % a.nby; blk /= a.nby;
   const int bx = blk % a.nbx; blk /= a.nbx;
-  int phase = 0;
-  if (MODE == MODE_UP) { phase = blk & 7; blk >>= 3; }
   const int b = blk;
   const int r0x = bx * BR, r0y = by * BR, r0z = bz * BR;
   const int hx0 = G::S * r0x - G::LO, hy0 = G::S * r0y - G::LO, hz0 = G::S * r0z - G::LO;
 
-  int ntap = 27;
-  if (MODE == MODE_UP)
-    ntap = (((phase >> 2) & 1) ? 1 : 2) * (((phase >> 1) & 1) ? 1 : 2) * ((phase & 1) ? 1 : 2);
+  constexpr int ntap = 27;
   const int cin = a.cin;
   const int nk = (cin + KC - 1) / KC;
   const int nsteps = nk * ntap;
@@ -193,9 +176,7 @@ __global__ void __launch_bounds__(NTHREADS) conv3d_kernel(const Args a) {
     }
   };
   auto load_b = [&](int s, int buf) {
-    const int kc = s / ntap, ti = s % ntap;
-    int t, delta;
-    tap_of<MODE>(ti, phase, t, delta);
+    const int kc = s / ntap, t = s % ntap;
     const int c0 = kc * KC;
     const __nv_bfloat16* src = a.w + ((size_t)t * cin + c0) * COUT;
     __nv_bfloat16* dst = bsm + buf * (KC * BP);
@@ -230,8 +211,7 @@ __global__ void __launch_bounds__(NTHREADS) conv3d_kernel(const Args a) {
       load_b(s + 1, (s + 1) & 1);
       cp_async_commit();
     }
-    int t, delta;
-    tap_of<MODE>(ti, phase, t, delta);
+    const int delta = tap_delta<MODE>(ti);
     const __nv_bfloat16* bs = bsm + (s & 1) * (KC * BP);
     const __nv_bfloat16* arow_p = halo + (ahb + delta) * KP + acol;
 #pragma unroll
@@ -274,13 +254,7 @@ __global__ void __launch_bounds__(NTHREADS) conv3d_kernel(const Args a) {
     const int r = warp * (BM / 8) + rr;
     const int qx = r0x + (r >> 4), qy = r0y + ((r >> 2) & 3), qz = r0z + (r & 3);
     if (qx >= a.RX || qy >= a.RY || qz >= a.RZ) continue;  // warp-uniform
-    int ox = qx, oy = qy, oz = qz;
-    if (MODE == MODE_UP) {
-      ox = 2 * qx + ((phase >> 2) & 1);
-      oy = 2 * qy + ((phase >> 1) & 1);
-      oz = 2 * qz + (phase & 1);
-    }
-    const size_t orow = (((size_t)b * a.OX + ox) * a.OY + oy) * a.OZ + oz;
+    const size_t orow = (((size_t)b * a.RX + qx) * a.RY + qy) * a.RZ + qz;
     float* er = E + r * ES;
     if (a.epi == EPI_BIAS) {
       __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(a.out) + orow * COUT;
@@ -345,7 +319,7 @@ int launch_mode(Args& a, cudaStream_t stream) {
   a.nbx = (a.RX + BR - 1) / BR;
   a.nby = (a.RY + BR - 1) / BR;
   a.nbz = (a.RZ + BR - 1) / BR;
-  const long long nblk = (long long)a.B * a.nbx * a.nby * a.nbz * (MODE == MODE_UP ? 8 : 1);
+  const long long nblk = (long long)a.B * a.nbx * a.nby * a.nbz;
   if (nblk <= 0) return 0;
   if (nblk > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes<MODE>(a.cout);
@@ -359,7 +333,7 @@ int launch_mode(Args& a, cudaStream_t stream) {
 
 extern "C" {
 
-// mode: 0 SAME 3x3x3, 1 stride-2 down, 2 stride-2 transpose (sub-pixel phases).
+// mode: 0 SAME 3x3x3, 1 stride-2 down.
 // epi: 0 bias only, 1 LayerNorm + tanh-GELU (SAME only); nh > 0 adds the f32 head.
 // Returns a cudaError_t code (0 on success).
 int conv3d_launch(int mode, int epi, const void* x, const void* w, const void* bias,
@@ -384,17 +358,11 @@ int conv3d_launch(int mode, int epi, const void* x, const void* w, const void* b
   switch (mode) {
     case MODE_SAME:
       a.RX = X; a.RY = Y; a.RZ = Z;
-      a.OX = X; a.OY = Y; a.OZ = Z;
       return launch_mode<MODE_SAME>(a, st);
     case MODE_DOWN:
       if (X % 2 || Y % 2 || Z % 2) return (int)cudaErrorInvalidValue;
       a.RX = X / 2; a.RY = Y / 2; a.RZ = Z / 2;
-      a.OX = X / 2; a.OY = Y / 2; a.OZ = Z / 2;
       return launch_mode<MODE_DOWN>(a, st);
-    case MODE_UP:
-      a.RX = X; a.RY = Y; a.RZ = Z;
-      a.OX = 2 * X; a.OY = 2 * Y; a.OZ = 2 * Z;
-      return launch_mode<MODE_UP>(a, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -37,13 +37,38 @@ def _close(got, ref, floor=1e-2):
     assert float((rel > 0.1).float().mean()) < 2e-2
 
 
-@pytest.mark.parametrize("case", ["same", "head", "bias", "down", "up", "odd"])
+# case -> (kernel, x shape (B, X, Y, Z, Cin), Cout, head width, epilogue)
+CASES = {
+    "same": ("same", (1, 12, 8, 20, 32), 64, 0, "ln_gelu"),
+    "head": ("same", (1, 12, 8, 20, 32), 64, 96, "ln_gelu"),
+    "head64": ("same", (1, 9, 17, 8, 64), 64, 64, "ln_gelu"),
+    "head_odd_width": ("same", (1, 8, 8, 8, 32), 32, 5, "ln_gelu"),
+    "head_mma_sync": ("same", (1, 6, 9, 8, 32), 256, 96, "ln_gelu"),  # too wide for the wgmma kernel
+    "bias": ("same", (1, 12, 8, 20, 32), 64, 0, "bias"),
+    "down": ("down", (1, 12, 8, 20, 64), 128, 0, "bias"),
+    "up": ("up", (1, 12, 8, 20, 64), 128, 0, "bias"),
+    "odd": ("same", (1, 13, 7, 21, 40), 64, 0, "ln_gelu"),
+    "cout32": ("same", (1, 10, 16, 16, 64), 32, 0, "ln_gelu"),
+    "cout128": ("same", (1, 10, 16, 16, 128), 128, 0, "ln_gelu"),
+    "cout256": ("same", (1, 5, 11, 16, 96), 256, 0, "ln_gelu"),
+    "ragged": ("same", (1, 21, 13, 7, 64), 64, 0, "ln_gelu"),
+    "batch2": ("same", (2, 9, 10, 12, 64), 64, 0, "ln_gelu"),
+    "cin8": ("same", (1, 8, 9, 10, 8), 64, 0, "ln_gelu"),
+    "deep": ("same", (1, 8, 8, 16, 256), 128, 0, "ln_gelu"),  # the ring wraps many times
+    "up_odd": ("up", (1, 5, 7, 9, 128), 64, 0, "bias"),
+    "up_batch2": ("up", (2, 4, 9, 8, 40), 32, 0, "bias"),
+    "up_cout256": ("up", (1, 3, 8, 10, 64), 256, 0, "bias"),
+    "up_resident": ("up", (1, 9, 12, 20, 256), 128, 0, "bias"),   # all slices stay in shared memory
+    "up_streams": ("up", (1, 4, 8, 9, 544), 64, 0, "bias"),       # too many slices to keep
+    "many_bricks": ("same", (1, 80, 48, 40, 64), 64, 0, "ln_gelu"),   # several bricks per block
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
 def test_kernel_matches_plain_version(dev, case):
+    kernel, shape, cout, nh, epi = CASES[case]
     g = torch.Generator().manual_seed(6)
-    cin, cout = (64, 128) if case in ("down", "up") else (32, 64)
-    shape = (1, 13, 7, 21, 40) if case == "odd" else (1, 12, 8, 20, cin)
     cin = shape[-1]
-    nh = 96 if case == "head" else 0
     x = torch.randn(shape, generator=g).to(dev, torch.bfloat16)
     w = (torch.randn((27, cin, cout), generator=g) / (27 * cin) ** 0.5).to(dev, torch.bfloat16)
     b = (0.1 * torch.randn((cout,), generator=g)).to(dev, torch.bfloat16)
@@ -54,17 +79,36 @@ def test_kernel_matches_plain_version(dev, case):
         head = dict(head_w=(torch.randn((cout, nh), generator=g) / cout ** 0.5).to(dev),
                     head_b=(0.1 * torch.randn((nh,), generator=g)).to(dev))
     C.reset_launch_counts()
-    if case == "down":
+    if kernel == "down":
         got, ref = C.conv_down2x_bias(x, w, b), C.conv_down2x_bias_ref(x, w, b)
-    elif case == "up":
+    elif kernel == "up":
         got, ref = C.conv_transpose2x_bias(x, w, b), C.conv_transpose2x_bias_ref(x, w, b)
     else:
-        epi = "bias" if case == "bias" else "ln_gelu"
         got = C.conv3x3x3_ln_gelu(x, w, b, *ln, epilogue=epi, **head)
         ref = C.conv3x3x3_ln_gelu_ref(x, w, b, *ln, epilogue=epi, **head)
     torch.cuda.synchronize()
     assert sum(C.LAUNCHES.values()) == 1
+    if kernel != "down":  # the Python mirror of the tile plan agrees with the launcher's
+        from syconn_tpu_torch.ops.build import library
+
+        plan = C.tile_plan(kernel, cin, cout, nh)
+        assert (plan is not None) == (case != "head_mma_sync")
+        assert library("conv3d_wgmma").conv3d_wgmma_plan(
+            0 if kernel == "same" else 2, cin, cout, nh) == (plan["smem_bytes"] if plan else 0)
     _close(got, ref)
+
+
+def test_repacked_weights_follow_the_parameter(dev):
+    """The packed image is cached per tensor and rebuilt after an in-place write."""
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn((1, 8, 8, 8, 32), generator=g).to(dev, torch.bfloat16)
+    w = (torch.randn((27, 32, 64), generator=g) / 30).to(dev, torch.bfloat16)
+    b = torch.zeros((64,), dtype=torch.bfloat16, device=dev)
+    first = C.conv3x3x3_ln_gelu(x, w, b, epilogue="bias")
+    assert torch.equal(first, C.conv3x3x3_ln_gelu(x, w, b, epilogue="bias"))
+    w.mul_(2)
+    _close(C.conv3x3x3_ln_gelu(x, w, b, epilogue="bias"),
+           C.conv3x3x3_ln_gelu_ref(x, w, b, epilogue="bias"))
 
 
 def test_kernel_rejects_what_it_does_not_take(dev):
