@@ -7,15 +7,16 @@ one CUDA card (Hopper: the kernels are built for sm_90a at first use).
 Phases, each failing the run on error:
   1. card name and power limit, versions, kernel build time, and per kernel
      the registers, spills and barriers ptxas reports (the wgmma kernels use
-     barrier 0 only, once, after the mbarrier init; a ptxas note that it
+     barrier 0 only, once, after the mbarrier init; the SAME, stride-2 and
+     transpose instantiations must all be there, and a ptxas note that it
      serialised the wgmmas fails the run);
   2. every conv kernel against its plain PyTorch version at every shape of
      the dense-prediction main path (syntype tile (256, 256, 128) + halo
      (32, 32, 16) -> patched (80, 80, 80)), with kernel, plain-version and
      library (cuDNN, no epilogue) times and the roofline bound, and at the
      shapes the wgmma kernels' tiling could get wrong (ragged extents, batch
-     2, every Cout, odd transpose extents, the head that falls to the
-     mma.sync kernel);
+     2, every Cout, odd transpose extents, the stride-2 conv's ragged even
+     extents and Cout split, the head that falls to the mma.sync kernel);
   3. the slice: ``predict_synapsetype`` (probs) and ``predict_myelin``
      (masks) over a seeded 512x512x256 volume in the port's chunk store,
      checking that every kernel of the path was launched the expected
@@ -23,8 +24,9 @@ Phases, each failing the run on error:
      kernel path agrees with the plain CPU path on a small input;
   4. the contact kernel against its plain version (all integers: equal) at
      the deployment chunk (256, 256, 128) + halo (6, 6, 3), tile (32, 32),
-     K = 32, stencil (13, 13, 7), and at an awkward shape with overflowing
-     columns;
+     K = 32, stencil (13, 13, 7), at an awkward shape with overflowing
+     columns, and at the deployment shape on dense labels (~22 live
+     candidates a column);
   5. the contact slice: ``run_contact_extraction`` over a seeded
      512x512x256 label volume, streaming (``CsDispatcher``, the CUDA kernel)
      and from the device-resident store; kernel launches equal the chunks,
@@ -54,12 +56,14 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # figure, which counts a fused multiply-add as two)
 PEAK_INT32 = 16.7e12
 # integer operations of one candidate step per output voxel in the leanest
-# separable form: 1 compare for the indicator, an add and a subtract per axis
-# for the three running box sums, and compare/compare/select for the update
-CANDIDATE_STEP_OPS = 10
+# packed separable form: the indicator and the running z and x sums (an add
+# and a subtract each) on four byte lanes per 32-bit operation, (1 + 2 + 2) / 4;
+# the running y sum, the key (shift, or), the own-slot mask and the max on two
+# 16-bit lanes, (2 + 2 + 1 + 1) / 2
+CANDIDATE_STEP_OPS = 4.25
 SOURCES = {
     "conv3x3x3_ln_gelu": "syconn_tpu_torch/ops/csrc/conv3d_wgmma.cu",
-    "conv_down2x_bias": "syconn_tpu_torch/ops/csrc/conv3d.cu",
+    "conv_down2x_bias": "syconn_tpu_torch/ops/csrc/conv3d_wgmma.cu",
     "conv_transpose2x_bias": "syconn_tpu_torch/ops/csrc/conv3d_wgmma.cu",
 }
 CONTACT_SOURCE = "syconn_tpu_torch/ops/csrc/contacts.cu"
@@ -68,6 +72,9 @@ CONTACT_REPLACES = "syconn_tpu/ops/contacts_pallas.py:45"
 CONTACT_SHAPES = [
     ("deployment", (268, 268, 134), (13, 13, 7), (32, 32), 32, (48, 48, 96), True),
     ("awkward", (200, 136, 72), (5, 5, 3), (32, 32), 8, (24, 24, 36), False),
+    # deployment stencil, tile and K on labels dense enough for ~22 live
+    # candidates per column (2 of 64 columns overflow)
+    ("dense", (268, 268, 134), (13, 13, 7), (32, 32), 32, (24, 24, 40), False),
 ]
 REPLACES = {
     "conv3x3x3_ln_gelu": "syconn_tpu/ops/conv3d_pallas.py:70",
@@ -97,7 +104,12 @@ SHAPES = [
     ("conv3x3x3_ln_gelu", (1, 21, 20, 19), 40, 256, 0, "ln_gelu", 0),   # Cout 256, Cin % 32 != 0
     ("conv3x3x3_ln_gelu", (1, 12, 12, 12), 32, 256, 96, "ln_gelu", 0),  # head on the mma.sync kernel
     ("conv_transpose2x_bias", (2, 11, 9, 13), 128, 64, 0, "bias", 0),   # odd extents, batch 2
+    ("conv_down2x_bias", (1, 22, 14, 10), 64, 128, 0, "bias", 0),       # ragged even extents
+    ("conv_down2x_bias", (2, 16, 12, 20), 32, 64, 0, "bias", 0),        # batch 2
+    ("conv_down2x_bias", (1, 20, 18, 16), 64, 32, 0, "bias", 0),        # Cout 32
+    ("conv_down2x_bias", (1, 22, 14, 10), 40, 256, 0, "bias", 0),       # Cout 256 split, Cin 40
 ]
+MODES = {"conv3x3x3_ln_gelu": "same", "conv_down2x_bias": "down", "conv_transpose2x_bias": "up"}
 PER_TILE = {"syntype": {"conv3x3x3_ln_gelu": 10, "conv_down2x_bias": 2, "conv_transpose2x_bias": 2},
             "myelin": {"conv3x3x3_ln_gelu": 6, "conv_down2x_bias": 1, "conv_transpose2x_bias": 1}}
 
@@ -225,12 +237,10 @@ def phase_kernels(dev):
             l_ms = cuda_ms(lambda: F.conv_transpose3d(xc, wt, stride=2, padding=1, output_padding=1))
         else:
             l_ms = cuda_ms(lambda: F.conv3d(xc, wl, **lib_args))
-        plan = None
-        if name != "conv_down2x_bias":
-            plan = C.tile_plan("up" if up else "same", cin, cout, nh)
-        if per_tile > 0 and name != "conv_down2x_bias" and plan is None:
-            raise AssertionError(f"{name} {dims} {cin}->{cout} nh={nh}: a main-path shape must "
-                                 f"take the wgmma kernel")
+        plan = C.tile_plan(MODES[name], cin, cout, nh)
+        if (per_tile > 0 or name != "conv3x3x3_ln_gelu") and plan is None:
+            raise AssertionError(f"{name} {dims} {cin}->{cout} nh={nh}: a main-path shape, and "
+                                 f"every stride-2 or transposed conv, must take the wgmma kernel")
         row = dict(name=name, n=n, cin=cin, cout=cout, nh=nh, epilogue=epi, per_tile=per_tile,
                    kernel="mma.sync" if plan is None else "wgmma",
                    smem_bytes=None if plan is None else plan["smem_bytes"],
@@ -610,6 +620,11 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     log(f"kernel build {time.perf_counter() - t0:.3f} s ({build.BUILD_SECONDS})")
+    entries = [ln for ln in build.ptxas_log("conv3d_wgmma").splitlines()
+               if "Compiling entry function" in ln]
+    for mode, what in ((0, "SAME"), (1, "stride-2"), (2, "transpose")):
+        if not any(f"conv3d_wgmma_kernelILi{mode}E" in ln for ln in entries):
+            raise AssertionError(f"ptxas conv3d_wgmma: no {what} instantiation in the build log")
     for name in build.SOURCES:
         fn = ""
         for line in build.ptxas_log(name).splitlines():

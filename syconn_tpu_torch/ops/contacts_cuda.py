@@ -33,6 +33,21 @@ __all__ = ["detect_cs_columns", "detect_cs_columns_ref", "detect_cs_cuda", "box_
 
 _INT_MAX = int(np.iinfo(np.int32).max)
 
+# Limits of the packed kernel (csrc/contacts.cu mirrors them in its launcher):
+MAX_K = 32          # slots: a 16-bit lane holds the key (count << 5) | (31 - slot)
+MAX_TILE = 32       # tx and ty: the y pass keeps half a tile column in registers
+MAX_ZX_SUM = 255    # sz * sx: the z and x sums run in byte lanes
+MAX_COUNT = 2047    # sx * sy * sz: the count, shifted by 5, fills a 16-bit lane
+
+
+def check_lane_widths(stencil) -> None:
+    """Reject a stencil whose partial sums would overflow a lane of the
+    packed kernel's counters (on every device: one contract)."""
+    sx, sy, sz = (int(s) for s in stencil)
+    if sz * sx > MAX_ZX_SUM or sx * sy * sz > MAX_COUNT:
+        raise ValueError(f"stencil {(sx, sy, sz)} overflows the kernel's packed counters: it "
+                         f"takes sz*sx <= {MAX_ZX_SUM} and sx*sy*sz <= {MAX_COUNT}")
+
 
 def box_sum(x: torch.Tensor, sizes: Sequence[int], dims: Sequence[int]) -> torch.Tensor:
     """Separable box sum: out[i] = sum over the window [i, i + s) along each
@@ -126,6 +141,7 @@ def detect_cs_columns(seg_padded: torch.Tensor, offs: torch.Tensor, cands: torch
         the best candidate's count is positive, else 0.
     """
     (sx, sy, sz), (tx, ty) = _check_args(seg_padded, offs, cands, stencil, tile_xy)
+    check_lane_widths((sx, sy, sz))
     if seg_padded.device.type == "cpu":
         return detect_cs_columns_ref(seg_padded, offs, cands, (sx, sy, sz), (tx, ty))
     if seg_padded.device.type != "cuda":
@@ -135,9 +151,9 @@ def detect_cs_columns(seg_padded: torch.Tensor, offs: torch.Tensor, cands: torch
             raise ValueError(f"{name} must be contiguous")
     Xp, Yp, Z = seg_padded.shape
     G, K = cands.shape
-    if tx * ty > 1024 or K > 254 or sx * sy > 255 or G > 65535 or min(G, K, Z, tx, ty) < 1:
-        raise ValueError(f"the kernel takes tx*ty <= 1024, K <= 254, sx*sy <= 255, G <= 65535; "
-                         f"got tile {(tx, ty)}, K={K}, stencil {(sx, sy, sz)}, G={G}")
+    if max(tx, ty) > MAX_TILE or K > MAX_K or G > 65535 or min(G, K, Z, tx, ty) < 1:
+        raise ValueError(f"the kernel takes tx, ty <= {MAX_TILE} (tx*ty <= 1024), K <= {MAX_K}, "
+                         f"G <= 65535; got tile {(tx, ty)}, K={K}, G={G}")
     from .build import library
 
     lib = library("contacts")

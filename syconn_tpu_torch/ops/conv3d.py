@@ -3,10 +3,9 @@ and their plain PyTorch versions.
 
 Counterparts of the Pallas kernels in ``syconn_tpu/ops/conv3d_pallas.py``
 (``conv3x3x3_ln_gelu`` :70, ``conv_transpose2x_bias`` :261,
-``conv_down2x_bias`` :393). The SAME conv and the transpose run the wgmma
-kernels of ``csrc/conv3d_wgmma.cu``; the stride-2 conv, and a SAME conv whose
-head does not fit the wgmma kernel's shared memory, the mma.sync kernel of
-``csrc/conv3d.cu``.
+``conv_down2x_bias`` :393). All three run the wgmma kernel of
+``csrc/conv3d_wgmma.cu``; only a SAME conv whose head does not fit its shared
+memory runs the mma.sync kernel of ``csrc/conv3d.cu``.
 
 Layouts follow the JAX package: activations channels-last
 ``(B, X, Y, Z, C)`` bf16, conv kernels as ``(27, Cin, Cout)`` bf16 (the flax
@@ -47,6 +46,7 @@ LAUNCHES: Dict[str, int] = {
 }
 
 _MODE_SAME, _MODE_DOWN, _MODE_UP = 0, 1, 2
+_MODE_NAMES = {_MODE_SAME: "same", _MODE_DOWN: "down", _MODE_UP: "up"}
 _EPI_BIAS, _EPI_LN_GELU = 0, 1
 _COUTS = (32, 64, 128, 256)
 _BF16 = torch.bfloat16
@@ -169,23 +169,33 @@ def pack_head(head_w: torch.Tensor) -> torch.Tensor:
     return parts.reshape(3, cout // 8, 8, nhp).permute(0, 1, 3, 2).contiguous()
 
 
+# the stride-2 conv's 64-row tiles per consumer warpgroup by Cout (tiles_of()
+# of csrc/conv3d_wgmma.cu)
+DOWN_TILES = {32: 4, 64: 4, 128: 2, 256: 1}
+
+
 def tile_plan(mode: str, cin: int, cout: int, nh: int = 0) -> Optional[Dict[str, int]]:
     """The wgmma kernel's tile plan for one shape, mirroring ``plan_of`` and
     ``make_layout`` of ``csrc/conv3d_wgmma.cu``: brick, halo buffers, ring
-    depth, steps of the main loop and shared-memory bytes; None when the
-    kernel does not take the shape (a head too wide for its shared memory)."""
-    if mode not in ("same", "up") or cout not in _COUTS or cin <= 0 or cin % 8:
+    depth, steps of the main loop and shared-memory bytes; None
+    when the kernel does not take the shape (a head too wide for its shared
+    memory)."""
+    if mode not in ("same", "down", "up") or cout not in _COUTS or cin <= 0 or cin % 8:
         raise ValueError(f"no tile plan for mode={mode!r} Cin={cin} Cout={cout}")
     if nh and mode != "same":
         raise ValueError("only the SAME conv fuses a head")
     if mode == "same":
         mt = {256: 1, 128: 2}.get(cout, 4)      # 64-row tiles per consumer warpgroup
+    elif mode == "down":
+        mt = DOWN_TILES[cout]
     else:
         mt = 1 if cout >= 128 else 2
     bx = 2 * mt
-    e = 2 if mode == "same" else 1
+    e = 2 if mode == "same" else 1              # the stride-2 conv: one input phase
     hp = (bx + e) * (8 + e) * (8 + e)           # halo positions
-    ps = hp + (10 - hp % 8) % 8                 # plane stride, 16-byte units
+    # plane stride, 16-byte units: 2 mod 8 against the loaders' bank conflicts,
+    # or (the stride-2 conv's TMA units) 128-byte aligned
+    ps = -(-hp // 8) * 8 if mode == "down" else hp + (10 - hp % 8) % 8
     halo_bytes = 4 * ps * 16
     stage_bytes = _KC * cout * 2
     nk = -(-cin // _KC)
@@ -204,6 +214,8 @@ def tile_plan(mode: str, cin: int, cout: int, nh: int = 0) -> Optional[Dict[str,
     halo_bufs = 2       # slices stream; the transpose keeps all resident when they fit
     if mode == "up" and 2 < nk <= 16 and total(nk, 4) <= SMEM_LIMIT:
         halo_bufs = nk
+    if mode == "down":
+        halo_bufs = 4   # eight input-phase units a slice stream through four
     stages = min(16, (SMEM_LIMIT - total(halo_bufs, 0)) // stage_bytes)
     if stages < 2:
         return None
@@ -258,8 +270,7 @@ def _launch(mode, epi, x, w, b, g, beta, hw, hb, out, nh):
     B, X, Y, Z, cin = x.shape
     cout = w.shape[2]
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    wgmma = mode != _MODE_DOWN and _takes_wgmma(
-        "same" if mode == _MODE_SAME else "up", cin, cout, nh)
+    wgmma = _takes_wgmma(_MODE_NAMES[mode], cin, cout, nh)
     with torch.cuda.device(x.device):
         if wgmma:
             lib = library("conv3d_wgmma")
@@ -269,7 +280,7 @@ def _launch(mode, epi, x, w, b, g, beta, hw, hb, out, nh):
                 mode, epi, _ptr(x), _ptr(wp), _ptr(b), _ptr(g), _ptr(beta), _ptr(hp),
                 _ptr(hb), _ptr(out), B, X, Y, Z, cin, cout, nh, stream)
             err = lib.conv3d_wgmma_error_string
-        else:
+        else:  # the tile plan sends only a SAME conv with a wide head here
             lib = library("conv3d")
             rc = lib.conv3d_launch(
                 mode, epi, _ptr(x), _ptr(w), _ptr(b), _ptr(g), _ptr(beta), _ptr(hw),

@@ -1,20 +1,16 @@
-// Hand-written Hopper (sm_90a) mma.sync kernels for the dense U-Net's 3x3x3
-// convolutions: the stride-2 conv, and the SAME conv for the shapes the wgmma
-// kernel of conv3d_wgmma.cu does not take.
+// Hand-written Hopper (sm_90a) mma.sync kernel for the dense U-Net's SAME
+// 3x3x3 convolution, for the shapes the wgmma kernel of conv3d_wgmma.cu does
+// not take.
 //
-// Replaces Pallas TPU kernels of syconn_tpu/ops/conv3d_pallas.py:
-//   * conv_down2x_bias       (:393) stride-2 SAME conv + bias (XLA SAME for even
-//                                    extents: pad low 0, high 1);
-//   * conv3x3x3_ln_gelu      (:70)  SAME 3x3x3 conv + bf16 bias, then either
-//                                    nothing ("bias"), or LayerNorm + tanh-GELU,
-//                                    optionally followed by a fused f32 1x1x1 head:
-//                                    served here only when the head's three bf16
-//                                    parts do not fit the wgmma kernel's shared
-//                                    memory (e.g. Cout 256 with 96 logits); no
-//                                    shape of the dense-prediction main path.
-// (conv_transpose2x_bias (:261) runs in conv3d_wgmma.cu for every shape.)
+// Replaces, for those shapes, the Pallas TPU kernel conv3x3x3_ln_gelu of
+// syconn_tpu/ops/conv3d_pallas.py (:70): SAME 3x3x3 conv + bf16 bias, then
+// either nothing ("bias"), or LayerNorm + tanh-GELU, optionally followed by a
+// fused f32 1x1x1 head. Served here only when the head's three bf16 parts do
+// not fit the wgmma kernel's shared memory (e.g. Cout 256 with 96 logits); no
+// shape of the dense-prediction main path. (The stride-2 conv and the
+// transpose run in conv3d_wgmma.cu for every shape.)
 //
-// One implicit-GEMM template with two index modes. A block owns a 4x4x4
+// One implicit-GEMM template. A block owns a 4x4x4
 // brick of output rows (64 rows) times ALL output channels (<= 256), so the
 // per-position LayerNorm over channels finishes in the epilogue and the conv
 // output never round-trips device memory. Per 32-channel slice of the input
@@ -24,11 +20,11 @@
 // are gathered from the halo with ldmatrix (one row address per lane), B with
 // ldmatrix.trans.
 //
-// Bound on the H100: the 3x3x3 convs at the main-path widths do ~27*Cout/2
-// FLOP per input byte, far above the ~295 FLOP/byte ridge, so they are bound
-// by tensor-core operations. This kernel uses mma.sync (not wgmma) with a
-// barrier per tap and a 64-row block, so it runs well below that bound (3-4x
-// slower than cuDNN); the design keeps the halo in shared memory to spend its
+// Bound on the H100: a 3x3x3 conv at these widths does ~27*Cout/2 FLOP per
+// input byte, far above the ~295 FLOP/byte ridge, so it is bound by
+// tensor-core operations. This kernel uses mma.sync (not wgmma) with a barrier
+// per tap and a 64-row block, so it runs well below that bound (3-4x slower
+// than cuDNN); the design keeps the halo in shared memory to spend its
 // bandwidth on operands that are reused.
 //
 // Epilogue op order follows the Pallas kernel exactly (conv3d_pallas.py:196-214):
@@ -50,7 +46,7 @@ constexpr int BR = 4;         // brick edge
 constexpr int BM = BR * BR * BR;  // 64 output rows per block
 constexpr int NTHREADS = 256; // 8 warps: 4 along rows (16 each) x 2 along channels
 
-enum Mode { MODE_SAME = 0, MODE_DOWN = 1 };
+enum Mode { MODE_SAME = 0 };
 enum Epi { EPI_BIAS = 0, EPI_LN_GELU = 1 };
 
 struct Args {
@@ -62,23 +58,14 @@ struct Args {
   const float* head_w;        // (cout, nh) or null
   const float* head_b;        // (nh) or null
   void* out;                  // bf16 (B, OX, OY, OZ, cout) or f32 (..., nh)
-  int B, X, Y, Z;             // input extents
-  int RX, RY, RZ;             // output extents (the row space)
+  int B, X, Y, Z;             // input extents (= output extents, the row space)
   int cin, cout, nh, epi;
   int nbx, nby, nbz;          // bricks per axis
 };
 
-// Per-mode halo geometry along one axis. A row at brick coordinate r reads,
-// for tap d, the halo element at S*r + off(d); the halo starts at S*r0 - LO.
-template <int MODE> struct Geo;
-template <> struct Geo<MODE_SAME> {
-  static constexpr int HE = BR + 2, S = 1, LO = 1;
-  __device__ static int off(int d) { return d; }
-};
-template <> struct Geo<MODE_DOWN> {
-  static constexpr int HE = 2 * BR + 1, S = 2, LO = 0;
-  __device__ static int off(int d) { return d; }
-};
+// Halo edge: a row at brick coordinate r reads, for tap d, the halo element
+// at r + d; the halo starts one row below the brick.
+constexpr int HE = BR + 2;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -118,17 +105,13 @@ __device__ __forceinline__ float gelu_tanh(float y) {
 }
 
 // Flat weight tap t -> halo index delta.
-template <int MODE>
 __device__ __forceinline__ int tap_delta(int t) {
-  constexpr int HE = Geo<MODE>::HE;
   const int dx = t / 9, dy = (t / 3) % 3, dz = t % 3;
-  return (Geo<MODE>::off(dx) * HE + Geo<MODE>::off(dy)) * HE + Geo<MODE>::off(dz);
+  return (dx * HE + dy) * HE + dz;
 }
 
-template <int MODE, int NT>
+template <int NT>
 __global__ void __launch_bounds__(NTHREADS) conv3d_kernel(const Args a) {
-  using G = Geo<MODE>;
-  constexpr int HE = G::HE;
   constexpr int HP = HE * HE * HE;
   constexpr int COUT = NT * 16;
   constexpr int BP = COUT + 8;  // weight row pitch (elements)
@@ -145,7 +128,7 @@ __global__ void __launch_bounds__(NTHREADS) conv3d_kernel(const Args a) {
   const int bx = blk % a.nbx; blk /= a.nbx;
   const int b = blk;
   const int r0x = bx * BR, r0y = by * BR, r0z = bz * BR;
-  const int hx0 = G::S * r0x - G::LO, hy0 = G::S * r0y - G::LO, hz0 = G::S * r0z - G::LO;
+  const int hx0 = r0x - 1, hy0 = r0y - 1, hz0 = r0z - 1;
 
   constexpr int ntap = 27;
   const int cin = a.cin;
@@ -155,7 +138,7 @@ __global__ void __launch_bounds__(NTHREADS) conv3d_kernel(const Args a) {
   // ldmatrix row of this lane (A operand): row wm*16 + (lane & 15) of the brick
   const int arow = wm * 16 + (lane & 15);
   const int arx = arow >> 4, ary = (arow >> 2) & 3, arz = arow & 3;
-  const int ahb = ((G::S * arx) * HE + G::S * ary) * HE + G::S * arz;
+  const int ahb = (arx * HE + ary) * HE + arz;
   const int acol = (lane >> 4) * 8;
 
   const __nv_bfloat16* xb = a.x + (size_t)b * a.X * a.Y * a.Z * cin;
@@ -211,7 +194,7 @@ __global__ void __launch_bounds__(NTHREADS) conv3d_kernel(const Args a) {
       load_b(s + 1, (s + 1) & 1);
       cp_async_commit();
     }
-    const int delta = tap_delta<MODE>(ti);
+    const int delta = tap_delta(ti);
     const __nv_bfloat16* bs = bsm + (s & 1) * (KC * BP);
     const __nv_bfloat16* arow_p = halo + (ahb + delta) * KP + acol;
 #pragma unroll
@@ -253,8 +236,8 @@ __global__ void __launch_bounds__(NTHREADS) conv3d_kernel(const Args a) {
   for (int rr = 0; rr < BM / 8; ++rr) {
     const int r = warp * (BM / 8) + rr;
     const int qx = r0x + (r >> 4), qy = r0y + ((r >> 2) & 3), qz = r0z + (r & 3);
-    if (qx >= a.RX || qy >= a.RY || qz >= a.RZ) continue;  // warp-uniform
-    const size_t orow = (((size_t)b * a.RX + qx) * a.RY + qy) * a.RZ + qz;
+    if (qx >= a.X || qy >= a.Y || qz >= a.Z) continue;  // warp-uniform
+    const size_t orow = (((size_t)b * a.X + qx) * a.Y + qy) * a.Z + qz;
     float* er = E + r * ES;
     if (a.epi == EPI_BIAS) {
       __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(a.out) + orow * COUT;
@@ -298,31 +281,28 @@ __global__ void __launch_bounds__(NTHREADS) conv3d_kernel(const Args a) {
   }
 }
 
-template <int MODE>
 size_t smem_bytes(int cout) {
-  constexpr int HE = Geo<MODE>::HE;
   const size_t main = (size_t)HE * HE * HE * KP * 2 + 2 * (size_t)KC * (cout + 8) * 2;
   const size_t epi = (size_t)BM * (cout + 4) * 4;
   return main > epi ? main : epi;
 }
 
-template <int MODE>
-int launch_mode(Args& a, cudaStream_t stream) {
+int launch(Args& a, cudaStream_t stream) {
   void (*kern)(Args) = nullptr;
   switch (a.cout) {
-    case 32: kern = conv3d_kernel<MODE, 2>; break;
-    case 64: kern = conv3d_kernel<MODE, 4>; break;
-    case 128: kern = conv3d_kernel<MODE, 8>; break;
-    case 256: kern = conv3d_kernel<MODE, 16>; break;
+    case 32: kern = conv3d_kernel<2>; break;
+    case 64: kern = conv3d_kernel<4>; break;
+    case 128: kern = conv3d_kernel<8>; break;
+    case 256: kern = conv3d_kernel<16>; break;
     default: return (int)cudaErrorInvalidValue;
   }
-  a.nbx = (a.RX + BR - 1) / BR;
-  a.nby = (a.RY + BR - 1) / BR;
-  a.nbz = (a.RZ + BR - 1) / BR;
+  a.nbx = (a.X + BR - 1) / BR;
+  a.nby = (a.Y + BR - 1) / BR;
+  a.nbz = (a.Z + BR - 1) / BR;
   const long long nblk = (long long)a.B * a.nbx * a.nby * a.nbz;
   if (nblk <= 0) return 0;
   if (nblk > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<MODE>(a.cout);
+  const size_t smem = smem_bytes(a.cout);
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   kern<<<(unsigned)nblk, NTHREADS, smem, stream>>>(a);
@@ -333,15 +313,14 @@ int launch_mode(Args& a, cudaStream_t stream) {
 
 extern "C" {
 
-// mode: 0 SAME 3x3x3, 1 stride-2 down.
-// epi: 0 bias only, 1 LayerNorm + tanh-GELU (SAME only); nh > 0 adds the f32 head.
+// mode: 0 SAME 3x3x3 (the only one; the stride-2 conv runs in conv3d_wgmma.cu).
+// epi: 0 bias only, 1 LayerNorm + tanh-GELU; nh > 0 adds the f32 head.
 // Returns a cudaError_t code (0 on success).
 int conv3d_launch(int mode, int epi, const void* x, const void* w, const void* bias,
                   const void* ln_g, const void* ln_b, const void* head_w, const void* head_b,
                   void* out, int B, int X, int Y, int Z, int cin, int cout, int nh,
                   void* stream) {
-  if (cin <= 0 || cin % 8 != 0) return (int)cudaErrorInvalidValue;
-  if (mode != MODE_SAME && (epi != EPI_BIAS || nh != 0)) return (int)cudaErrorInvalidValue;
+  if (mode != MODE_SAME || cin <= 0 || cin % 8 != 0) return (int)cudaErrorInvalidValue;
   if (nh > 0 && epi != EPI_LN_GELU) return (int)cudaErrorInvalidValue;
   Args a;
   a.x = static_cast<const __nv_bfloat16*>(x);
@@ -354,18 +333,7 @@ int conv3d_launch(int mode, int epi, const void* x, const void* w, const void* b
   a.out = out;
   a.B = B; a.X = X; a.Y = Y; a.Z = Z;
   a.cin = cin; a.cout = cout; a.nh = nh; a.epi = epi;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case MODE_SAME:
-      a.RX = X; a.RY = Y; a.RZ = Z;
-      return launch_mode<MODE_SAME>(a, st);
-    case MODE_DOWN:
-      if (X % 2 || Y % 2 || Z % 2) return (int)cudaErrorInvalidValue;
-      a.RX = X / 2; a.RY = Y / 2; a.RZ = Z / 2;
-      return launch_mode<MODE_DOWN>(a, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return launch(a, static_cast<cudaStream_t>(stream));
 }
 
 const char* conv3d_error_string(int code) {

@@ -1,13 +1,15 @@
-// Hopper (sm_90a) warpgroup-MMA kernels for the dense U-Net's SAME 3x3x3
-// convolution and its stride-2 transpose.
+// Hopper (sm_90a) warpgroup-MMA kernels for the dense U-Net's 3x3x3
+// convolutions: SAME, stride 2, and the stride-2 transpose.
 //
-// Replaces two Pallas TPU kernels of syconn_tpu/ops/conv3d_pallas.py:
+// Replaces three Pallas TPU kernels of syconn_tpu/ops/conv3d_pallas.py:
 //   * conv3x3x3_ln_gelu      (:70)  SAME 3x3x3 conv + bf16 bias, then nothing
 //                                    ("bias") or LayerNorm + tanh-GELU, with an
 //                                    optional fused f32 1x1x1 head;
+//   * conv_down2x_bias       (:393) stride-2 SAME conv + bias (XLA SAME for even
+//                                    extents: pad low 0, high 1);
 //   * conv_transpose2x_bias  (:261) flax ConvTranspose (SAME, k3, s2) + bias as
 //                                    8 sub-pixel output phases.
-// (conv_down2x_bias and the fallback named below stay in conv3d.cu.)
+// (Only the fallback named below stays in conv3d.cu.)
 //
 // Bound on the H100: at the main-path widths the convs do ~27*Cout/2 FLOP per
 // input byte, far above the ~295 FLOP/byte ridge, so tensor-core operations
@@ -83,6 +85,21 @@
 //     read by all eight phases. Where Cin is too large for that, the slices
 //     stream through two buffers once per phase (slower: a phase with one tap
 //     per slice then waits for the copies).
+//   * The stride-2 conv reads x[2r + d]: at stride 2 the rows of a core
+//     matrix would sit 32 bytes apart, which no descriptor expresses. So its
+//     halo is cut by input phase: the unit of phase (px, py, pz) holds
+//     x[2h + p] for a (BX + 1) x 9 x 9 halo h in the same [group][x][y][z][16 B]
+//     layout, and tap d reads it at h = r + d / 2 (phase bit d % 2): 8 units a
+//     32-channel slice with 8, 4, 4, 2, 4, 2, 2 and 1 taps, all into one set
+//     of accumulators. (The whole (2BX + 1) x 17 x 17 halo of a slice, split
+//     only by z parity, takes 98 KB at BX = 2 and leaves no room for a second
+//     buffer beside the stages.) A unit arrives as four TMA boxes (one per
+//     channel group) of a tensor map with traversal stride 2, issued by one
+//     producer thread: a unit serves only ~3.4 taps, and with 96 threads
+//     computing cp.async addresses the consumers waited on the halo half the
+//     time. TMA's zero fill is the high pad and the channel padding; nothing
+//     is copied in device memory beforehand. Four units stream through the
+//     halo ring.
 //   * -DCONV3D_TIMING keeps clock counts of block 0's waits, wgmma starts and
 //     epilogues (syconn_tpu_torch/tools/conv3d_breakdown.py builds with it and
 //     reads them). They go to a device array, never through printf: a printf
@@ -101,6 +118,7 @@
 //
 // Plain C interface (loaded with ctypes by syconn_tpu_torch/ops/build.py).
 
+#include <cuda.h>  // CUtensorMap (cuTensorMapEncodeTiled is fetched at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -128,10 +146,11 @@ constexpr int TAP_OFFSET = 8 * (2 * MAX_STAGES + 2 * MAX_HALO_BUFS + 1);  // beh
 constexpr int BAR_BYTES = TAP_OFFSET + 120;  // 640: mbarriers, then the block's 27 taps
 constexpr int SMEM_LIMIT = 232448;
 
-enum Mode { MODE_SAME = 0, MODE_UP = 2 };
+enum Mode { MODE_SAME = 0, MODE_DOWN = 1, MODE_UP = 2 };
 enum Epi { EPI_BIAS = 0, EPI_LN_GELU = 1 };
 
 struct Args {
+  CUtensorMap tmap;           // stride 2: x as (cin, Z, Y, X, B), every second voxel
   const __nv_bfloat16* x;     // (B, X, Y, Z, cin)
   const __nv_bfloat16* wp;    // packed weights (27, nk, 4, cout, 8)
   const __nv_bfloat16* bias;  // (cout)
@@ -140,7 +159,8 @@ struct Args {
   const __nv_bfloat16* hp;    // packed head (3, cout / 8, nhp, 8) or null
   const float* head_b;        // (nh) or null
   void* out;                  // bf16 (B, OX, OY, OZ, cout) or f32 (..., nh)
-  int B, X, Y, Z;             // input extents (= row space)
+  int B, X, Y, Z;             // row space: the input's extents (SAME, transpose) or the
+                              // output's (stride 2: the input is twice as large)
   int cin, cout, nh, nhp, epi;
   int nbx, nby, nbz, nbricks; // bricks per axis, and in all
   int nst;                    // weight stages in the ring
@@ -184,6 +204,16 @@ __device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, uint32_t
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
           "r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// TMA: a box of the tensor map at coordinates (c, z, y, x, b) into shared
+// memory, completing `bytes` on the mbarrier; out-of-range elements are zeros
+__device__ __forceinline__ void tma_5d(uint32_t dst, const CUtensorMap* map, int c, int z, int y,
+                                       int x, int b, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(z), "r"(y), "r"(x), "r"(b), "r"(bar)
       : "memory");
 }
 // 16-byte cp.async; src_bytes 0 writes zeros and reads nothing
@@ -312,6 +342,9 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
 // ------------------------------------------------------------ geometry
 // Halo of a brick of BX x 8 x 8 rows. SAME reads x[r + d - 1], d in 0..2; the
 // transpose reads x[u - 1] (tap 0 of an even output phase) or x[u] (taps 1, 2).
+// The stride-2 conv reads x[2r + d]: its halo is one of the eight input phases
+// x[2h + p] (p = d % 2), which tap d reads at h = r + d / 2, so that
+// consecutive rows stay 16 bytes apart; one halo unit per phase and slice.
 template <int MODE, int BX>
 struct Geo {
   static constexpr int E = MODE == MODE_SAME ? 2 : 1;
@@ -319,7 +352,8 @@ struct Geo {
   static constexpr int HP = HX * HY * HZ;
   // channel-group plane stride in 16-byte units, 2 mod 8: the four planes a
   // loader quad writes fall on different banks
-  static constexpr int PS = HP + (10 - HP % 8) % 8;
+  // (the stride-2 conv's units arrive by TMA, which wants 128-byte aligned planes)
+  static constexpr int PS = MODE == MODE_DOWN ? (HP + 7) / 8 * 8 : HP + (10 - HP % 8) % 8;
   static constexpr int HALO_BYTES = 4 * PS * 16;
 };
 
@@ -348,14 +382,20 @@ __host__ __device__ constexpr Layout make_layout(int halo_bytes, int nhb, int co
 __device__ __forceinline__ int phase_taps(int phase) {
   return (((phase >> 2) & 1) ? 1 : 2) * (((phase >> 1) & 1) ? 1 : 2) * ((phase & 1) ? 1 : 2);
 }
+// First entry of a phase in the tap list: 0, 8, 12, 16, 18, 22, 24, 26.
+__device__ __forceinline__ int phase_tap0(int phase) {
+  return (int)((0x1A181612100C0800ull >> (8 * phase)) & 0xFFu);
+}
 
-// Entry i of the block's tap list (the eight phases of the transpose one after
-// the other, 27 entries in either mode) -> flat weight tap t and halo offset
-// in 16-byte units.
+// Entry i of the block's tap list (the eight phases of the transpose or of the
+// stride-2 conv's input one after the other, 27 entries in every mode) -> flat
+// weight tap t and halo offset in 16-byte units. A phase bit p of an axis
+// takes tap d = 1 (p = 1) or d in {0, 2} (p = 0); the transpose reads it at
+// offset d > 0, the stride-2 conv at d / 2.
 template <int MODE, int HY, int HZ>
 __device__ __forceinline__ void tap_entry(int i, int& t, int& delta) {
   int dx, dy, dz, ox, oy, oz;
-  if (MODE == MODE_UP) {
+  if (MODE != MODE_SAME) {
     int phase = 0, ti = i;
     while (ti >= phase_taps(phase)) ti -= phase_taps(phase++);
     const int px = (phase >> 2) & 1, py = (phase >> 1) & 1, pz = phase & 1;
@@ -364,7 +404,11 @@ __device__ __forceinline__ void tap_entry(int i, int& t, int& delta) {
     dx = px ? 1 : (ix ? 2 : 0);
     dy = py ? 1 : (iy ? 2 : 0);
     dz = pz ? 1 : (iz ? 2 : 0);
-    ox = dx ? 1 : 0; oy = dy ? 1 : 0; oz = dz ? 1 : 0;
+    if (MODE == MODE_UP) {
+      ox = dx ? 1 : 0; oy = dy ? 1 : 0; oz = dz ? 1 : 0;
+    } else {
+      ox = dx >> 1; oy = dy >> 1; oz = dz >> 1;
+    }
   } else {
     dx = i / 9; dy = (i / 3) % 3; dz = i % 3;
     ox = dx; oy = dy; oz = dz;
@@ -398,12 +442,13 @@ struct Ring {
 // on across bricks, so the producers load the next brick's first halo slices
 // and weight stages while the consumers are in the epilogue of this one.
 template <int MODE, int COUT, int MT>
-__global__ void __launch_bounds__(NTHREADS, 1) conv3d_wgmma_kernel(const Args a) {
+__global__ void __launch_bounds__(NTHREADS, 1) conv3d_wgmma_kernel(const __grid_constant__ Args a) {
   constexpr int BX = 2 * MT;
   using G = Geo<MODE, BX>;
   constexpr int HY = G::HY, HZ = G::HZ, HP = G::HP, PS = G::PS;
   constexpr int NACC = COUT / 2;
-  constexpr int NPH = MODE == MODE_UP ? 8 : 1;
+  constexpr int NEPI = MODE == MODE_UP ? 8 : 1;    // epilogues (output phases) per brick
+  constexpr int NIN = MODE == MODE_DOWN ? 8 : 1;   // halo units (input phases) per slice
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L = make_layout(G::HALO_BYTES, a.nhb, COUT, a.nst, a.nhp);
   const int nst = a.nst;
@@ -442,7 +487,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) conv3d_wgmma_kernel(const Args a)
       mbar_init(bar_wempty + 8 * i, NCONS / 32);
     }
     for (int i = 0; i < a.nhb; ++i) {
-      mbar_init(bar_hfull + 8 * i, NHALO_THREADS);
+      mbar_init(bar_hfull + 8 * i, MODE == MODE_DOWN ? 1 : NHALO_THREADS);
       mbar_init(bar_hempty + 8 * i, NCONS / 32);
     }
     mbar_init(bar_head, 1);
@@ -465,28 +510,59 @@ __global__ void __launch_bounds__(NTHREADS, 1) conv3d_wgmma_kernel(const Args a)
       TICK(p_all);
 #endif
       for (int brick = blockIdx.x; brick < a.nbricks; brick += gridDim.x) {
-        for (int phase = 0, tap0 = 0; phase < NPH; ++phase) {
-          const int ntap = MODE == MODE_UP ? phase_taps(phase) : 27;
+        for (int po = 0; po < NEPI; ++po) {
           for (int kc = 0; kc < nk; ++kc) {
-            for (int ti = 0; ti < ntap; ++ti) {
-              TICK(p0);
-              mbar_wait(bar_wempty + 8 * r.i, r.par);
-              TOCK(p_wait, p0);
-              const int t = s_tap[tap0 + ti] >> 16;
-              mbar_expect_tx(bar_wfull + 8 * r.i, L.stage_bytes);
-              bulk_g2s(sbase + L.w + r.i * L.stage_bytes,
-                       a.wp + ((size_t)t * nk + kc) * (KC * COUT), L.stage_bytes,
-                       bar_wfull + 8 * r.i);
-              r.next(nst);
+            for (int pi = 0; pi < NIN; ++pi) {
+              const int phase = MODE == MODE_UP ? po : pi;
+              const int tap0 = MODE == MODE_SAME ? 0 : phase_tap0(phase);
+              const int ntap = MODE == MODE_SAME ? 27 : phase_taps(phase);
+              for (int ti = 0; ti < ntap; ++ti) {
+                TICK(p0);
+                mbar_wait(bar_wempty + 8 * r.i, r.par);
+                TOCK(p_wait, p0);
+                const int t = s_tap[tap0 + ti] >> 16;
+                mbar_expect_tx(bar_wfull + 8 * r.i, L.stage_bytes);
+                bulk_g2s(sbase + L.w + r.i * L.stage_bytes,
+                         a.wp + ((size_t)t * nk + kc) * (KC * COUT), L.stage_bytes,
+                         bar_wfull + 8 * r.i);
+                r.next(nst);
+              }
             }
           }
-          tap0 += ntap;
         }
       }
 #ifdef CONV3D_TIMING
       if (blockIdx.x == 0) { g_dbg[20] = clock64() - p_all; g_dbg[21] = p_wait; }
 #endif
-    } else if (tid >= 32) {
+    } else if (MODE == MODE_DOWN && tid == 32) {
+      // The stride-2 conv: one unit = one input phase (px, py, pz) of a
+      // 32-channel slice, x[2h + p] for h in a (BX + 1) x 9 x 9 halo, as four
+      // TMA boxes (one per 8-channel group) of every second voxel. A unit that
+      // reaches past the input's end gets zeros there: the high pad, and the
+      // channel padding past Cin. No thread computes an address.
+      constexpr uint32_t BOX = (BX + 1) * 81 * 16;
+      Ring r{0, 1u};
+      for (int brick = blockIdx.x; brick < a.nbricks; brick += gridDim.x) {
+        int blk = brick;
+        const int bz = blk % a.nbz; blk /= a.nbz;
+        const int by = blk % a.nby; blk /= a.nby;
+        const int bx = blk % a.nbx; blk /= a.nbx;
+        for (int kc = 0; kc < nk; ++kc) {
+          for (int pi = 0; pi < NIN; ++pi) {
+            mbar_wait(bar_hempty + 8 * r.i, r.par);
+            const uint32_t bar = bar_hfull + 8 * r.i;
+            const uint32_t dst = sbase + L.halo + r.i * G::HALO_BYTES;
+            mbar_expect_tx(bar, 4 * BOX);
+            const int x0 = 2 * bx * BX + ((pi >> 2) & 1), y0 = 2 * by * TY + ((pi >> 1) & 1);
+            const int z0 = 2 * bz * TZ + (pi & 1);
+#pragma unroll
+            for (int v = 0; v < 4; ++v)
+              tma_5d(dst + v * PS * 16, &a.tmap, kc * KC + v * 8, z0, y0, x0, blk, bar);
+            r.next(a.nhb);
+          }
+        }
+      }
+    } else if (MODE != MODE_DOWN && tid >= 32) {
       const int ht = tid - 32;
       Ring r{0, 1u};
       for (int brick = blockIdx.x; brick < a.nbricks; brick += gridDim.x) {
@@ -496,7 +572,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) conv3d_wgmma_kernel(const Args a)
         const int bx = blk % a.nbx; blk /= a.nbx;
         const __nv_bfloat16* xb = a.x + (size_t)blk * a.X * a.Y * a.Z * a.cin;
         const int hx0 = bx * BX - 1, hy0 = by * TY - 1, hz0 = bz * TZ - 1;
-        for (int phase = 0; phase < (resident ? 1 : NPH); ++phase) {
+        for (int phase = 0; phase < (resident ? 1 : NEPI); ++phase) {
           for (int kc = 0; kc < nk; ++kc) {
             mbar_wait(bar_hempty + 8 * r.i, r.par);
             const uint32_t dst0 = sbase + L.halo + r.i * G::HALO_BYTES;
@@ -552,77 +628,81 @@ __global__ void __launch_bounds__(NTHREADS, 1) conv3d_wgmma_kernel(const Args a)
       const int b = blk;
       const int r0x = bx * BX, r0y = by * TY, r0z = bz * TZ;
 
-      for (int phase = 0, tap0 = 0; phase < NPH; tap0 += phase_taps(phase), ++phase) {
-        const int ntap = MODE == MODE_UP ? phase_taps(phase) : 27;
+      for (int po = 0; po < NEPI; ++po) {
 #pragma unroll
         for (int m = 0; m < MT; ++m)
 #pragma unroll
           for (int i = 0; i < NACC; ++i) acc[m][i] = 0.f;
 
         for (int kc = 0; kc < nk; ++kc) {
-          // a resident slice is waited for in the first phase and kept until the last
-          TICK(q0);
-          if (!resident || phase == 0) mbar_wait(bar_hfull + 8 * rh.i, rh.par);
-          TOCK(t_halo, q0);
-          // descriptors of this slice's first slab and of the stage; a tap, a slab
-          // or a k16 step only adds to the start-address field (16-byte units)
-          const uint64_t da0 = smem_desc(
-              sbase + L.halo + rh.i * G::HALO_BYTES + (wg * MT) * (HY * HZ * 16), PS * 16, HZ * 16);
-          // two taps a step where the list allows: twice the products per fence,
-          // wait and release
-          for (int ti = 0; ti < ntap; ti += 2) {
-            const bool two = ti + 1 < ntap;
-            const uint32_t taps = __shfl_sync(
-                0xffffffffu,
-                (s_tap[tap0 + ti] & 0xffffu) | (two ? s_tap[tap0 + ti + 1] << 16 : 0u), 0);
-            const uint64_t da1 = da0 + (taps & 0xffffu), da2 = da0 + (taps >> 16);
-            TICK(q1);
-            const int st1 = rw.i;
-            mbar_wait(bar_wfull + 8 * rw.i, rw.par);
-            rw.next(nst);
-            const int st2 = two ? rw.i : -1;
-            if (two) {
+          for (int pi = 0; pi < NIN; ++pi) {
+            const int phase = MODE == MODE_UP ? po : pi;
+            const int tap0 = MODE == MODE_SAME ? 0 : phase_tap0(phase);
+            const int ntap = MODE == MODE_SAME ? 27 : phase_taps(phase);
+            // a resident slice is waited for in the first phase and kept until the last
+            TICK(q0);
+            if (!resident || po == 0) mbar_wait(bar_hfull + 8 * rh.i, rh.par);
+            TOCK(t_halo, q0);
+            // descriptors of this slice's first slab and of the stage; a tap, a slab
+            // or a k16 step only adds to the start-address field (16-byte units)
+            const uint64_t da0 = smem_desc(
+                sbase + L.halo + rh.i * G::HALO_BYTES + (wg * MT) * (HY * HZ * 16), PS * 16, HZ * 16);
+            // two taps a step where the list allows: twice the products per fence,
+            // wait and release
+            for (int ti = 0; ti < ntap; ti += 2) {
+              const bool two = ti + 1 < ntap;
+              const uint32_t taps = __shfl_sync(
+                  0xffffffffu,
+                  (s_tap[tap0 + ti] & 0xffffu) | (two ? s_tap[tap0 + ti + 1] << 16 : 0u), 0);
+              const uint64_t da1 = da0 + (taps & 0xffffu), da2 = da0 + (taps >> 16);
+              TICK(q1);
+              const int st1 = rw.i;
               mbar_wait(bar_wfull + 8 * rw.i, rw.par);
               rw.next(nst);
-            }
-            TOCK(t_w, q1);
-            TICK(q2);
-            const uint64_t db1 = smem_desc(sbase + L.w + st1 * L.stage_bytes, COUT * 16, 128);
-            const uint64_t db2 =
-                smem_desc(sbase + L.w + (two ? st2 : st1) * L.stage_bytes, COUT * 16, 128);
-            wgmma_fence();
-#pragma unroll
-            for (int m = 0; m < MT; ++m) {
-#pragma unroll
-              for (int ks = 0; ks < KC / 16; ++ks)
-                wgmma_ss(acc[m], da1 + (m * HY * HZ + ks * 2 * PS), db1 + ks * 2 * COUT);
-            }
-            if (two) {
+              const int st2 = two ? rw.i : -1;
+              if (two) {
+                mbar_wait(bar_wfull + 8 * rw.i, rw.par);
+                rw.next(nst);
+              }
+              TOCK(t_w, q1);
+              TICK(q2);
+              const uint64_t db1 = smem_desc(sbase + L.w + st1 * L.stage_bytes, COUT * 16, 128);
+              const uint64_t db2 =
+                  smem_desc(sbase + L.w + (two ? st2 : st1) * L.stage_bytes, COUT * 16, 128);
+              wgmma_fence();
 #pragma unroll
               for (int m = 0; m < MT; ++m) {
 #pragma unroll
                 for (int ks = 0; ks < KC / 16; ++ks)
-                  wgmma_ss(acc[m], da2 + (m * HY * HZ + ks * 2 * PS), db2 + ks * 2 * COUT);
+                  wgmma_ss(acc[m], da1 + (m * HY * HZ + ks * 2 * PS), db1 + ks * 2 * COUT);
               }
+              if (two) {
+#pragma unroll
+                for (int m = 0; m < MT; ++m) {
+#pragma unroll
+                  for (int ks = 0; ks < KC / 16; ++ks)
+                    wgmma_ss(acc[m], da2 + (m * HY * HZ + ks * 2 * PS), db2 + ks * 2 * COUT);
+                }
+              }
+              wgmma_commit();
+              TOCK(t_mma, q2);
+              TICK(q3);
+              wgmma_wait<1>();  // the previous step's products are done: release what it read
+              TOCK(t_wait1, q3);
+              if (lane == 0) {
+                if (rel_stage >= 0) mbar_arrive(bar_wempty + 8 * rel_stage);
+                if (rel_stage2 >= 0) mbar_arrive(bar_wempty + 8 * rel_stage2);
+                if (rel_halo >= 0) mbar_arrive(bar_hempty + 8 * rel_halo);
+              }
+              rel_stage = st1;
+              rel_stage2 = st2;
+              rel_halo = (ti + 2 >= ntap && (!resident || po == NEPI - 1)) ? rh.i : -1;
             }
-            wgmma_commit();
-            TOCK(t_mma, q2);
-            TICK(q3);
-            wgmma_wait<1>();  // the previous step's products are done: release what it read
-            TOCK(t_wait1, q3);
-            if (lane == 0) {
-              if (rel_stage >= 0) mbar_arrive(bar_wempty + 8 * rel_stage);
-              if (rel_stage2 >= 0) mbar_arrive(bar_wempty + 8 * rel_stage2);
-              if (rel_halo >= 0) mbar_arrive(bar_hempty + 8 * rel_halo);
+            if (resident && po < NEPI - 1) {
+              if (++rh.i == a.nhb) rh.i = 0;  // same buffers, same parity, next phase
+            } else {
+              rh.next(a.nhb);
             }
-            rel_stage = st1;
-            rel_stage2 = st2;
-            rel_halo = (ti + 2 >= ntap && (!resident || phase == NPH - 1)) ? rh.i : -1;
-          }
-          if (resident && phase < NPH - 1) {
-            if (++rh.i == a.nhb) rh.i = 0;  // same buffers, same parity, next phase
-          } else {
-            rh.next(a.nhb);
           }
         }
         wgmma_wait<0>();
@@ -635,7 +715,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) conv3d_wgmma_kernel(const Args a)
 
         // ------------------------------------------------- epilogue
         TICK(q4);
-        const int px = (phase >> 2) & 1, py = (phase >> 1) & 1, pz = phase & 1;
+        const int px = (po >> 2) & 1, py = (po >> 1) & 1, pz = po & 1;
         if (head && !head_ready) {
           mbar_wait(bar_head, 0);
           head_ready = true;
@@ -814,11 +894,12 @@ __global__ void __launch_bounds__(NTHREADS, 1) conv3d_wgmma_kernel(const Args a)
 }
 
 // ------------------------------------------------------------ host side
-// Tiles per consumer warpgroup (the brick is 2 * mt x 8 x 8 rows). SAME takes
-// what the accumulators allow; the transpose takes half of it, so that all
-// slices of its smaller halo stay resident at the main-path widths.
+// Tiles per consumer warpgroup (the brick is 2 * mt x 8 x 8 rows). SAME takes what the accumulators allow; the transpose takes half
+// of it, so that all slices of its smaller halo stay resident at the main-path
+// widths.
 inline int tiles_of(int mode, int cout) {
   if (mode == MODE_SAME) return cout == 256 ? 1 : cout == 128 ? 2 : 4;
+  if (mode == MODE_DOWN) return cout == 256 ? 1 : cout == 128 ? 2 : 4;
   return cout >= 128 ? 1 : 2;
 }
 
@@ -826,12 +907,47 @@ inline int halo_bytes_of(int mode, int mt) {
   if (mode == MODE_SAME)
     return mt == 1 ? Geo<MODE_SAME, 2>::HALO_BYTES
                    : mt == 2 ? Geo<MODE_SAME, 4>::HALO_BYTES : Geo<MODE_SAME, 8>::HALO_BYTES;
+  if (mode == MODE_DOWN)
+    return mt == 1 ? Geo<MODE_DOWN, 2>::HALO_BYTES
+                   : mt == 2 ? Geo<MODE_DOWN, 4>::HALO_BYTES : Geo<MODE_DOWN, 8>::HALO_BYTES;
   return mt == 1 ? Geo<MODE_UP, 2>::HALO_BYTES : Geo<MODE_UP, 4>::HALO_BYTES;
+}
+
+// The stride-2 conv's tensor map: x (B, X, Y, Z, cin) bf16 as dims (cin, Z, Y,
+// X, B), a box of 8 channels x 9 x 9 x (BX + 1) voxels taken at every second
+// voxel (traversal stride 2: box extent 18, 18, 2 (BX + 1)), zeros outside.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+int encode_down_map(CUtensorMap* map, const void* x, int B, int X, int Y, int Z, int cin, int bx) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
+    if (e != cudaSuccess) return (int)e;
+    if (q != cudaDriverEntryPointSuccess || fn == nullptr) return (int)cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[5] = {(cuuint64_t)cin, (cuuint64_t)Z, (cuuint64_t)Y, (cuuint64_t)X,
+                              (cuuint64_t)B};
+  const cuuint64_t row = (cuuint64_t)cin * 2;  // bytes
+  const cuuint64_t strides[4] = {row, row * Z, row * Z * Y, row * Z * Y * X};
+  const cuuint32_t box[5] = {8, 2 * TZ + 2, 2 * TY + 2, 2 * (cuuint32_t)bx + 2, 1};
+  const cuuint32_t estr[5] = {1, 2, 2, 2, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(x), dims,
+                            strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 // Halo buffers and ring depth for one shape: the transpose keeps all slices
 // resident when they fit beside a ring of at least 4 stages, else slices
-// stream through two buffers; the ring takes what is left, up to 16 stages.
+// stream through two buffers; the stride-2 conv's eight small input-phase
+// units a slice stream through four; the ring takes what is left, up to 16
+// stages.
 // Returns the dynamic shared memory in bytes, or 0 when not even two stages fit.
 int plan_of(int mode, int cin, int cout, int nhp, int& mt, int& nhb, int& nst) {
   mt = tiles_of(mode, cout);
@@ -842,6 +958,7 @@ int plan_of(int mode, int cin, int cout, int nhp, int& mt, int& nhb, int& nst) {
   if (mode == MODE_UP && nk > 2 && nk <= MAX_HALO_BUFS &&
       make_layout(hb, nk, cout, 4, nhp).total <= SMEM_LIMIT)
     nhb = nk;
+  if (mode == MODE_DOWN) nhb = 4;
   const int fixed = make_layout(hb, nhb, cout, 0, nhp).total;
   nst = (SMEM_LIMIT - fixed) / stage;
   if (nst > MAX_STAGES) nst = MAX_STAGES;
@@ -880,25 +997,28 @@ int launch_one(Args& a, size_t smem, cudaStream_t stream) {
 extern "C" {
 
 // Dynamic shared memory (bytes) of the block that takes the shape, or 0 when
-// the wgmma kernel does not take it. mode: 0 SAME, 2 transpose.
+// the wgmma kernel does not take it. mode: 0 SAME, 1 stride 2, 2 transpose.
 int conv3d_wgmma_plan(int mode, int cin, int cout, int nh) {
-  if (mode != MODE_SAME && mode != MODE_UP) return 0;
+  if (mode != MODE_SAME && mode != MODE_DOWN && mode != MODE_UP) return 0;
   if (cout != 32 && cout != 64 && cout != 128 && cout != 256) return 0;
   if (cin <= 0 || cin % 8 != 0 || nh < 0 || (nh > 0 && mode != MODE_SAME)) return 0;
   int mt, nhb, nst;
   return plan_of(mode, cin, cout, round_up(nh, HEAD_CHUNK), mt, nhb, nst);
 }
 
-// mode: 0 SAME 3x3x3, 2 stride-2 transpose (all eight phases in one block).
-// epi: 0 bias only, 1 LayerNorm + tanh-GELU (SAME only); nh > 0 adds the f32 head.
-// wp: weights packed (27, ceil(cin / 32), 4, cout, 8); hp: head packed
-// (3, cout / 8, roundup(nh, 32), 8). Returns a cudaError_t code (0 on success).
+// mode: 0 SAME 3x3x3, 1 stride-2 conv (pad low 0, high 1; even extents), 2
+// stride-2 transpose (all eight phases in one block); B, X, Y, Z are the
+// input's extents. epi: 0 bias only, 1 LayerNorm + tanh-GELU (SAME only);
+// nh > 0 adds the f32 head. wp: weights packed (27, ceil(cin / 32), 4, cout,
+// 8); hp: head packed (3, cout / 8, roundup(nh, 32), 8).
+// Returns a cudaError_t code (0 on success).
 int conv3d_wgmma_launch(int mode, int epi, const void* x, const void* wp, const void* bias,
                         const void* ln_g, const void* ln_b, const void* hp, const void* head_b,
                         void* out, int B, int X, int Y, int Z, int cin, int cout, int nh,
                         void* stream) {
-  if (mode == MODE_UP && (epi != EPI_BIAS || nh != 0)) return (int)cudaErrorInvalidValue;
+  if (mode != MODE_SAME && (epi != EPI_BIAS || nh != 0)) return (int)cudaErrorInvalidValue;
   if (nh > 0 && epi != EPI_LN_GELU) return (int)cudaErrorInvalidValue;
+  if (mode == MODE_DOWN && (X % 2 || Y % 2 || Z % 2)) return (int)cudaErrorInvalidValue;
   if (conv3d_wgmma_plan(mode, cin, cout, nh) == 0) return (int)cudaErrorInvalidValue;
   Args a;
   a.x = static_cast<const __nv_bfloat16*>(x);
@@ -909,10 +1029,15 @@ int conv3d_wgmma_launch(int mode, int epi, const void* x, const void* wp, const 
   a.hp = static_cast<const __nv_bfloat16*>(hp);
   a.head_b = static_cast<const float*>(head_b);
   a.out = out;
-  a.B = B; a.X = X; a.Y = Y; a.Z = Z;
+  const int s = mode == MODE_DOWN ? 2 : 1;
+  a.B = B; a.X = X / s; a.Y = Y / s; a.Z = Z / s;
   a.cin = cin; a.cout = cout; a.nh = nh; a.nhp = round_up(nh, HEAD_CHUNK); a.epi = epi;
   int mt;
   const size_t smem = (size_t)plan_of(mode, cin, cout, a.nhp, mt, a.nhb, a.nst);
+  if (mode == MODE_DOWN) {
+    const int rc = encode_down_map(&a.tmap, x, B, X, Y, Z, cin, 2 * mt);
+    if (rc != 0) return rc;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mode == MODE_SAME) {
     switch (cout) {
@@ -920,6 +1045,14 @@ int conv3d_wgmma_launch(int mode, int epi, const void* x, const void* wp, const 
       case 64: return launch_one<MODE_SAME, 64, 4>(a, smem, st);
       case 128: return launch_one<MODE_SAME, 128, 2>(a, smem, st);
       default: return launch_one<MODE_SAME, 256, 1>(a, smem, st);
+    }
+  }
+  if (mode == MODE_DOWN) {
+    switch (cout) {
+      case 32: return launch_one<MODE_DOWN, 32, 4>(a, smem, st);
+      case 64: return launch_one<MODE_DOWN, 64, 4>(a, smem, st);
+      case 128: return launch_one<MODE_DOWN, 128, 2>(a, smem, st);
+      default: return launch_one<MODE_DOWN, 256, 1>(a, smem, st);
     }
   }
   switch (cout) {

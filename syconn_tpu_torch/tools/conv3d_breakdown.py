@@ -4,7 +4,7 @@
 Builds ``ops/csrc/conv3d_wgmma.cu`` with ``-DCONV3D_TIMING`` (into its own
 library: the flag is part of the build key), launches the kernel at the
 dense-prediction main-path shapes and prints, for block 0, the clock counts
-its two consumer warpgroups spent waiting for a halo slice, waiting for weight
+its two consumer warpgroups spent waiting for a halo slice (or input-phase unit), waiting for weight
 stages, starting wgmmas (a start blocks while the tensor cores' queue is
 full), waiting for the group before, and in the epilogue, and what the weight
 producer spent waiting for a free stage. The counters themselves cost time
@@ -26,7 +26,8 @@ import torch
 SHAPES = [
     ("same", 80, 32, 64, 0), ("same", 80, 64, 64, 0), ("same", 80, 128, 64, 0),
     ("same", 80, 64, 64, 96), ("same", 40, 128, 128, 0), ("same", 40, 256, 128, 0),
-    ("same", 20, 256, 256, 0), ("up", 20, 256, 128, 0), ("up", 40, 128, 64, 0),
+    ("same", 20, 256, 256, 0), ("down", 80, 64, 128, 0), ("down", 40, 128, 256, 0),
+    ("up", 20, 256, 128, 0), ("up", 40, 128, 64, 0),
 ]
 NAMES = ["total", "halo_wait", "weight_wait", "wgmma_start", "group_wait", "epilogue"]
 
@@ -55,6 +56,8 @@ def main() -> int:
         for _ in range(2):  # the second launch is the one read
             if kind == "same":
                 C.conv3x3x3_ln_gelu(x, w, b, g, beta, head_w=hw, head_b=hb)
+            elif kind == "down":
+                C.conv_down2x_bias(x, w, b)
             else:
                 C.conv_transpose2x_bias(x, w, b)
             torch.cuda.synchronize()

@@ -208,3 +208,31 @@ def test_kernel_wrapper_rejects_what_it_does_not_take():
         TC.detect_cs_columns(seg, offs, cands[0], (5, 5, 3), (16, 16))
     lo, hi = TC.detect_cs_columns(seg, offs, cands, (5, 5, 3), (16, 16))
     assert lo.shape == (1, 16, 16, 8) and not lo.any() and not hi.any()
+
+
+@pytest.mark.parametrize("stencil,ok", [((13, 13, 7), True), ((5, 5, 3), True),
+                                        ((17, 17, 9), False), ((37, 3, 7), False)])
+def test_kernel_wrapper_guards_the_packed_lane_widths(stencil, ok):
+    """The packed kernel sums z then x in byte lanes (sz*sx <= 255) and the
+    whole window in 16-bit lanes beside a 5-bit slot (sx*sy*sz <= 2047): the
+    wrapper rejects a stencil past either, on every device, and the C
+    launcher states the same limits."""
+    import os
+    import re
+
+    seg = torch.zeros((48, 48, 12), dtype=torch.int32)
+    seg[:20] = 5
+    seg[20:] = 9
+    offs = torch.zeros((1, 2), dtype=torch.int32)
+    cands = torch.tensor([[5, 9, 2**31 - 1, 2**31 - 1]], dtype=torch.int32)
+    if ok:
+        lo, hi = TC.detect_cs_columns(seg, offs, cands, stencil, (8, 8))
+        assert lo.shape == (1, 8, 8, 12)
+    else:
+        with pytest.raises(ValueError, match="packed counters"):
+            TC.detect_cs_columns(seg, offs, cands, stencil, (8, 8))
+    src = open(os.path.join(os.path.dirname(TC.__file__), "csrc", "contacts.cu")).read()
+    for name, value in (("MAX_K", TC.MAX_K), ("MAX_TILE", TC.MAX_TILE),
+                        ("MAX_BYTE", TC.MAX_ZX_SUM), ("MAX_COUNT", TC.MAX_COUNT)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    assert TC.MAX_COUNT << 5 < 1 << 16 and TC.MAX_K <= 32

@@ -139,30 +139,38 @@ def test_packed_images_are_cached_per_tensor_and_follow_writes():
     assert key not in C._PACKED  # the entry dies with its tensor
 
 
-SMOKE_SHAPES = [row for row in _smoke_shapes() if row[0] != "conv_down2x_bias"]  # mma.sync kernel
+SMOKE_SHAPES = _smoke_shapes()
+MODES = {"conv3x3x3_ln_gelu": "same", "conv_down2x_bias": "down", "conv_transpose2x_bias": "up"}
 
 
 @pytest.mark.parametrize("row", SMOKE_SHAPES, ids=lambda r: f"{r[0]}-{r[1]}-{r[2]}-{r[3]}-{r[4]}")
 def test_tile_plan_of_every_smoke_shape_fits_shared_memory(row):
     name, _, cin, cout, nh, _, per_tile = row
-    plan = C.tile_plan("up" if name == "conv_transpose2x_bias" else "same", cin, cout, nh)
-    if per_tile > 0:
+    plan = C.tile_plan(MODES[name], cin, cout, nh)
+    if per_tile > 0 or name != "conv3x3x3_ln_gelu":
         assert plan is not None, "a main-path shape must take the wgmma kernel"
     if plan is not None:
         assert plan["smem_bytes"] <= C.SMEM_LIMIT == 232448
-        assert 2 <= plan["stages"] <= 16 and plan["halo_bufs"] in (2, -(-cin // 32))
+        assert 2 <= plan["stages"] <= 16
+        assert plan["halo_bufs"] in ((2, -(-cin // 32)) if name != "conv_down2x_bias" else (4,))
         assert plan["rows"] == plan["brick"][0] * 64 and plan["steps"] == 27 * -(-cin // 32)
 
 
 def test_smoke_shapes_hold_the_main_path_and_the_tiling_corner_cases():
-    assert len(SMOKE_SHAPES) == 17
+    assert len(SMOKE_SHAPES) == 23
     assert sum(r[6] for r in SMOKE_SHAPES if r[0] == "conv3x3x3_ln_gelu") == 10
+    assert sum(r[6] for r in SMOKE_SHAPES if r[0] == "conv_down2x_bias") == 2
     assert sum(r[6] for r in SMOKE_SHAPES if r[0] == "conv_transpose2x_bias") == 2
     off_path = [r for r in SMOKE_SHAPES if not isinstance(r[1], int)]
     assert {r[3] for r in off_path} >= {32, 64, 256} and any(r[1][0] == 2 for r in off_path)
+    down = [r for r in off_path if r[0] == "conv_down2x_bias"]
+    # ragged even extents, batch 2, Cout 32 and 256, Cin not a multiple of 32
+    assert any(r[1][0] == 2 for r in down) and {r[3] for r in down} >= {32, 256}
+    assert any(r[2] % 32 for r in down) and any(s % 16 for r in down for s in r[1][1:])
+    assert all(s % 2 == 0 for r in down for s in r[1][1:])
 
 
-@pytest.mark.parametrize("mode", ["same", "up"])
+@pytest.mark.parametrize("mode", ["same", "down", "up"])
 @pytest.mark.parametrize("cout", [32, 64, 128, 256])
 def test_tile_plan_covers_the_contract(mode, cout):
     for cin in (8, 32, 40, 64, 128, 256, 512, 1024):
@@ -178,7 +186,10 @@ def test_tile_plan_covers_the_contract(mode, cout):
     with pytest.raises(ValueError):
         C.tile_plan(mode, 12, cout)
     with pytest.raises(ValueError):
-        C.tile_plan("down", 32, cout)
+        C.tile_plan("stride3", 32, cout)
+    if mode != "same":
+        with pytest.raises(ValueError, match="head"):
+            C.tile_plan(mode, 32, cout, 64)
 
 
 def test_tile_plan_keeps_the_transpose_halo_resident_on_the_main_path():
@@ -188,3 +199,115 @@ def test_tile_plan_keeps_the_transpose_halo_resident_on_the_main_path():
     assert C.tile_plan("same", 64, 64, 96)["brick"] == (8, 8, 8)
     assert C.tile_plan("same", 256, 256)["brick"] == (2, 8, 8)
     assert C.tile_plan("same", 32, 256, 96) is None        # served by the mma.sync kernel
+
+
+def test_tile_plan_of_the_stride_2_conv():
+    """Both main-path shapes and every Cout: bricks and four small
+    input-phase halo buffers fit beside a ring of at least 4 stages."""
+    for cin, cout in ((64, 128), (128, 256)):  # 80^3 and 40^3 of the syntype model
+        plan = C.tile_plan("down", cin, cout)
+        assert plan["halo_bufs"] == 4 and plan["stages"] >= 4
+    assert C.tile_plan("down", 64, 128)["brick"] == (4, 8, 8)
+    for cout in (32, 64, 128, 256):
+        mt = C.DOWN_TILES[cout]
+        plan = C.tile_plan("down", 40, cout)
+        assert plan["brick"] == (2 * mt, 8, 8)
+        assert cout * mt <= 256  # accumulators: mt * Cout / 2 a thread
+        assert plan["halo_bytes"] == 4 * 16 * -(-(2 * mt + 1) * 81 // 8) * 8  # 128-byte planes
+
+
+def _down_tap_table():
+    """The stride-2 conv's tap list as conv3d_wgmma.cu walks it (tap_entry):
+    input phases (px, py, pz) in order, bit 2 = x; per axis a phase bit 1
+    takes tap d = 1, a bit 0 taps 0 and 2; tap d reads halo row r + d // 2 of
+    its phase. Entries (tap, phase, delta in 16-byte units in a halo of
+    (bx + 1) x 9 x 9 positions)."""
+    out = []
+    for phase in range(8):
+        per_axis = [(1,) if (phase >> s) & 1 else (0, 2) for s in (2, 1, 0)]
+        for dx in per_axis[0]:
+            for dy in per_axis[1]:
+                for dz in per_axis[2]:
+                    out.append((dx * 9 + dy * 3 + dz, phase,
+                                ((dx // 2) * 9 + dy // 2) * 9 + dz // 2))
+    return out
+
+
+def test_down_tap_table_covers_every_tap_once_in_phase_order():
+    table = _down_tap_table()
+    assert sorted(t for t, _, _ in table) == list(range(27))
+    starts = [next(i for i, e in enumerate(table) if e[1] == p) for p in range(8)]
+    assert starts == [0, 8, 12, 16, 18, 22, 24, 26]  # phase_tap0 of the kernel
+
+
+@pytest.mark.parametrize("shape,cout", [((1, 6, 10, 14, 40), 64), ((2, 10, 6, 18, 32), 256)],
+                         ids=["odd-halves-cin40", "batch2-cout256"])
+def test_packed_down_operands_reproduce_the_stride_2_conv(shape, cout):
+    """The stride-2 conv as the kernel computes it, in numpy: per brick,
+    32-channel slice and input phase a halo unit [8-channel
+    group][x][y][z][16 B] loaded as the kernel's TMA boxes do (x[2h + p] for
+    h in (bx + 1) x 9 x 9, zeros past the input's end: the high pad), and per tap of the phase and 64-row tile
+    (one x, 8 y, 8 z) the A operand gathered by descriptor arithmetic: start
+    + tile * 81 + delta, SBO 9 units per y, LBO the group plane PS, + k16
+    step * 2 PS. Against the plain version: same bf16 products, f32 sums in
+    another order. Output half-extents odd, ragged against the 8 x 8 tiles."""
+    rng = np.random.default_rng(sum(shape) + cout)
+    B, X, Y, Z, cin = shape
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy((rng.normal(size=(27, cin, cout)) / 30).astype(np.float32)).to(
+        torch.bfloat16)
+    b = torch.from_numpy((0.1 * rng.normal(size=cout)).astype(np.float32)).to(torch.bfloat16)
+    plan = C.tile_plan("down", cin, cout)
+    bx = plan["brick"][0]
+    wp = C.pack_conv_weight(w).float().numpy()
+    nk = wp.shape[1]
+    hp = (bx + 1) * 81
+    ps = plan["halo_bytes"] // 64                      # group plane stride, 16-byte units
+    assert ps >= hp and ps % 8 == 0                    # TMA boxes land 128-byte aligned
+    xs = x.float().numpy()
+    OX, OY, OZ = X // 2, Y // 2, Z // 2
+    out = np.zeros((B, OX, OY, OZ, cout), np.float32)
+    table = _down_tap_table()
+    ry, rz = np.meshgrid(np.arange(8), np.arange(8), indexing="ij")
+    rows = (ry * 9 + rz).reshape(64)                   # row r = 8 y + z: + SBO * y + z
+    for bb in range(B):
+        for x0 in range(0, OX, bx):
+            for y0 in range(0, OY, 8):
+                for z0 in range(0, OZ, 8):
+                    acc = np.zeros((bx, 64, cout), np.float32)
+                    for kc in range(nk):
+                        for phase in range(8):
+                            p = ((phase >> 2) & 1, (phase >> 1) & 1, phase & 1)
+                            halo = np.zeros((4 * ps, 8), np.float32)
+                            for hx in range(bx + 1):  # the TMA box: every second voxel
+                                for hy in range(9):
+                                    for hz in range(9):
+                                        g = (2 * (x0 + hx) + p[0], 2 * (y0 + hy) + p[1],
+                                             2 * (z0 + hz) + p[2])
+                                        if g[0] >= X or g[1] >= Y or g[2] >= Z:
+                                            continue   # zero fill: the high pad
+                                        for v in range(4):
+                                            c = kc * 32 + v * 8
+                                            if c < cin:
+                                                halo[v * ps + (hx * 9 + hy) * 9 + hz] = \
+                                                    xs[bb, g[0], g[1], g[2], c:c + 8]
+                            for tap, ph, delta in table:
+                                if ph != phase:
+                                    continue
+                                stage = wp[tap, kc].transpose(0, 2, 1).reshape(32, cout)
+                                for m in range(bx):
+                                    units = m * 81 + delta + rows
+                                    a_op = np.concatenate(
+                                        [halo[g * ps + units] for g in range(4)], axis=1)
+                                    acc[m] += a_op @ stage
+                    for m in range(bx):
+                        qx = x0 + m
+                        if qx >= OX:
+                            continue
+                        blk = acc[m].reshape(8, 8, cout)[:OY - y0, :OZ - z0]
+                        out[bb, qx, y0:y0 + 8, z0:z0 + 8] = blk
+    got = torch.from_numpy(out).to(torch.bfloat16) + b
+    ref = C.conv_down2x_bias_ref(x, w, b)
+    assert got.shape == ref.shape == (B, OX, OY, OZ, cout)
+    err = (got.float() - ref.float()).abs()
+    assert float(err.max()) <= 2.0 ** -6 and float((err > 0).float().mean()) < 0.05

@@ -46,6 +46,11 @@ CASES = {
     "head_mma_sync": ("same", (1, 6, 9, 8, 32), 256, 96, "ln_gelu"),  # too wide for the wgmma kernel
     "bias": ("same", (1, 12, 8, 20, 32), 64, 0, "bias"),
     "down": ("down", (1, 12, 8, 20, 64), 128, 0, "bias"),
+    "down_ragged": ("down", (1, 22, 14, 10, 64), 128, 0, "bias"),     # even, ragged on 8 x 8
+    "down_batch2": ("down", (2, 16, 12, 20, 32), 64, 0, "bias"),
+    "down_cout32": ("down", (1, 20, 18, 16, 64), 32, 0, "bias"),
+    "down_cout256_cin40": ("down", (1, 22, 14, 10, 40), 256, 0, "bias"),  # Cin % 32 != 0
+    "down_deep": ("down", (1, 16, 16, 16, 256), 256, 0, "bias"),      # the ring wraps many times
     "up": ("up", (1, 12, 8, 20, 64), 128, 0, "bias"),
     "odd": ("same", (1, 13, 7, 21, 40), 64, 0, "ln_gelu"),
     "cout32": ("same", (1, 10, 16, 16, 64), 32, 0, "ln_gelu"),
@@ -88,13 +93,14 @@ def test_kernel_matches_plain_version(dev, case):
         ref = C.conv3x3x3_ln_gelu_ref(x, w, b, *ln, epilogue=epi, **head)
     torch.cuda.synchronize()
     assert sum(C.LAUNCHES.values()) == 1
-    if kernel != "down":  # the Python mirror of the tile plan agrees with the launcher's
-        from syconn_tpu_torch.ops.build import library
+    # the Python mirror of the tile plan agrees with the launcher's
+    from syconn_tpu_torch.ops.build import library
 
-        plan = C.tile_plan(kernel, cin, cout, nh)
-        assert (plan is not None) == (case != "head_mma_sync")
-        assert library("conv3d_wgmma").conv3d_wgmma_plan(
-            0 if kernel == "same" else 2, cin, cout, nh) == (plan["smem_bytes"] if plan else 0)
+    plan = C.tile_plan(kernel, cin, cout, nh)
+    mode = {"same": 0, "down": 1, "up": 2}[kernel]
+    assert (plan is not None) == (case != "head_mma_sync")
+    assert library("conv3d_wgmma").conv3d_wgmma_plan(mode, cin, cout, nh) == (
+        plan["smem_bytes"] if plan else 0)
     _close(got, ref)
 
 
@@ -146,7 +152,20 @@ def _blocky(seed, n_labels, grid, block):
                    np.ones(block, np.uint32))
 
 
-@pytest.mark.parametrize("case", ["tile16", "tile32_ragged", "overflow_k8"])
+def _dense_labels():
+    """The dense-label contact shape of chip_smoke.py, cut to 3 x 3 columns:
+    blocks of (24, 24, 40) voxels, ~22 live candidates a column of K = 32."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.blocky_labels((108, 108, 134), (24, 24, 40), seed=11).astype(np.uint32)
+
+
+@pytest.mark.parametrize("case", ["tile16", "tile32_ragged", "overflow_k8", "dense_k32"])
 def test_contact_kernel_matches_plain_version(dev, case):
     """``detect_cs_columns`` on the card == its plain version on the same
     CUDA tensors, and the whole column path == the exact host kernel."""
@@ -158,9 +177,12 @@ def test_contact_kernel_matches_plain_version(dev, case):
         "tile32_ragged": (_blocky(8, 7, (9, 7, 5), (8, 9, 7))[:70, :59, :33], (5, 5, 3),
                           (32, 32), 16),
         "overflow_k8": (_blocky(4, 24, (12, 12, 6), (4, 4, 6)), (13, 13, 7), (16, 16), 8),
+        "dense_k32": (_dense_labels(), (13, 13, 7), (32, 32), 32),
     }[case]
     seg_p, offs, cands, overflow, _ = CC._columns_prep(seg, stencil, tile_xy, K)
-    assert overflow.any() == (case == "overflow_k8")
+    assert overflow.any() == (case == "overflow_k8") or case == "dense_k32"
+    if case == "dense_k32":
+        assert 16 <= float((cands != 2**31 - 1).sum(axis=1).mean()) <= 28
     args = [torch.from_numpy(a).to(dev) for a in (seg_p, offs, cands)]
     C.reset_launch_counts()
     lo, hi = CC.detect_cs_columns(*args, stencil, tile_xy)
@@ -180,8 +202,11 @@ def test_contact_kernel_rejects_what_it_does_not_take(dev):
     cands = torch.full((1, 4), 2**31 - 1, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="tx\\*ty"):
         CC.detect_cs_columns(seg, offs, cands, (5, 5, 3), (64, 32))
-    with pytest.raises(ValueError, match="sx\\*sy"):
-        CC.detect_cs_columns(seg, offs, cands, (17, 17, 3), (16, 16))
+    with pytest.raises(ValueError, match="sx\\*sy\\*sz"):
+        CC.detect_cs_columns(seg, offs, cands, (17, 17, 9), (16, 16))
+    with pytest.raises(ValueError, match="K <= 32"):
+        CC.detect_cs_columns(seg, offs, torch.full((1, 40), 2**31 - 1, dtype=torch.int32,
+                                                   device=dev), (5, 5, 3), (16, 16))
     with pytest.raises(ValueError, match="contiguous"):
         CC.detect_cs_columns(seg.permute(1, 0, 2), offs, cands, (5, 5, 3), (16, 16))
     with pytest.raises(ValueError, match="is on"):
