@@ -31,7 +31,20 @@ Phases, each failing the run on error:
      512x512x256 label volume, streaming (``CsDispatcher``, the CUDA kernel)
      and from the device-resident store; kernel launches equal the chunks,
      the two runs' label volumes and counts are equal, and a small two-cube
-     volume agrees between the card and the CPU path.
+     volume agrees between the card and the CPU path;
+  6. step 2, SD generation (after the earlier slices, so that those measure
+     the streaming path): ``predict_cellorganelles`` (the organelles U-Net,
+     whose conv shapes phase 2 checks too) over the slice's raw volume,
+     streamed and then resident (``ResidentDensePredictor``), outputs on disk
+     equal and the registered ``mi``/``vc`` maps equal to disk; ``kd_init``
+     for ``mi`` and ``vc`` on seeded blob probability maps, resident
+     (``ResidentSegmenter``) and streaming through the device chain on the
+     full volume, streaming and on the host (scipy) on a 256x256x128
+     sub-volume, segmentations equal, and once on the registered maps;
+     ``init_cell_subcell_tables``' scan of the contact slice's cell
+     segmentation (one chunk of dense labels) held resident, equal to the
+     host scan; the device functions of step 2 against their CPU runs, and
+     each alone on one deployment chunk against its host counterpart.
 
 The line before last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Exits non-zero without a result
@@ -110,8 +123,32 @@ SHAPES = [
     ("conv_down2x_bias", (1, 22, 14, 10), 40, 256, 0, "bias", 0),       # Cout 256 split, Cin 40
 ]
 MODES = {"conv3x3x3_ln_gelu": "same", "conv_down2x_bias": "down", "conv_transpose2x_bias": "up"}
+# the organelles U-Net (features 32/64, one stride-2 level, patch (2, 2, 2),
+# 4 classes) on the deployment tile + halo -> patched (160, 160, 80):
+# (kernel, (B, X, Y, Z), cin, cout, head width, epilogue, launches per tile);
+# batch 4 is the resident path's tile batch
+ORG_SHAPES = [
+    ("conv3x3x3_ln_gelu", (1, 160, 160, 80), 8, 32, 0, "ln_gelu", 1),
+    ("conv3x3x3_ln_gelu", (1, 160, 160, 80), 32, 32, 0, "ln_gelu", 1),
+    ("conv_down2x_bias", (1, 160, 160, 80), 32, 64, 0, "bias", 1),
+    ("conv3x3x3_ln_gelu", (1, 80, 80, 40), 64, 64, 0, "ln_gelu", 2),
+    ("conv_transpose2x_bias", (1, 80, 80, 40), 64, 32, 0, "bias", 1),
+    ("conv3x3x3_ln_gelu", (1, 160, 160, 80), 64, 32, 0, "ln_gelu", 1),
+    ("conv3x3x3_ln_gelu", (1, 160, 160, 80), 32, 32, 32, "ln_gelu", 1),
+    ("conv3x3x3_ln_gelu", (4, 160, 160, 80), 64, 32, 0, "ln_gelu", 0),
+    ("conv3x3x3_ln_gelu", (4, 160, 160, 80), 32, 32, 32, "ln_gelu", 0),
+    ("conv_down2x_bias", (4, 160, 160, 80), 32, 64, 0, "bias", 0),
+]
 PER_TILE = {"syntype": {"conv3x3x3_ln_gelu": 10, "conv_down2x_bias": 2, "conv_transpose2x_bias": 2},
-            "myelin": {"conv3x3x3_ln_gelu": 6, "conv_down2x_bias": 1, "conv_transpose2x_bias": 1}}
+            "myelin": {"conv3x3x3_ln_gelu": 6, "conv_down2x_bias": 1, "conv_transpose2x_bias": 1},
+            "organelles": {"conv3x3x3_ln_gelu": 6, "conv_down2x_bias": 1,
+                           "conv_transpose2x_bias": 1}}
+# step 2 (syconn_tpu/handler/default_config.yml:34, :82-128): deployment
+# chunk; per organelle the blob radii (x, y, z voxels at 10 x 10 x 20 nm),
+# grid spacing and pair separation (in x radii) of the seeded probability maps
+STEP2_CHUNK = (256, 256, 128)
+BLOBS = {"mi": dict(radii=(14, 14, 7), spacing=(64, 48, 32), sep=1.6, seed=21),
+         "vc": dict(radii=(9, 6, 5), spacing=(48, 40, 24), sep=2.0, seed=22)}
 
 
 def log(msg: str) -> None:
@@ -173,12 +210,18 @@ def phase_kernels(dev):
     from syconn_tpu_torch.ops import conv3d as C
 
     gen = torch.Generator().manual_seed(0)
+    # the organelles shapes (up to 262M input values at batch 4) draw on the card
+    dgen = torch.Generator(device=dev).manual_seed(1)
     rows = []
-    for name, n, cin, cout, nh, epi, per_tile in SHAPES:
+    for task, (name, n, cin, cout, nh, epi, per_tile) in (
+            [("syntype", sh) for sh in SHAPES] + [("organelles", sh) for sh in ORG_SHAPES]):
         up = name == "conv_transpose2x_bias"
         dims = (1, n, n, n) if isinstance(n, int) else tuple(n)
         vox = dims[0] * dims[1] * dims[2] * dims[3]
-        x = torch.randn(dims + (cin,), generator=gen).to(dev, torch.bfloat16)
+        if task == "syntype":
+            x = torch.randn(dims + (cin,), generator=gen).to(dev, torch.bfloat16)
+        else:
+            x = torch.randn(dims + (cin,), generator=dgen, device=dev).to(torch.bfloat16)
         w = (torch.randn((27, cin, cout), generator=gen) / (27 * cin) ** 0.5).to(dev, torch.bfloat16)
         b = (0.1 * torch.randn((cout,), generator=gen)).to(dev, torch.bfloat16)
         g = (1 + 0.1 * torch.randn((cout,), generator=gen)).to(dev)
@@ -238,10 +281,11 @@ def phase_kernels(dev):
         else:
             l_ms = cuda_ms(lambda: F.conv3d(xc, wl, **lib_args))
         plan = C.tile_plan(MODES[name], cin, cout, nh)
-        if (per_tile > 0 or name != "conv3x3x3_ln_gelu") and plan is None:
+        if (per_tile > 0 or task == "organelles" or name != "conv3x3x3_ln_gelu") and plan is None:
             raise AssertionError(f"{name} {dims} {cin}->{cout} nh={nh}: a main-path shape, and "
                                  f"every stride-2 or transposed conv, must take the wgmma kernel")
-        row = dict(name=name, n=n, cin=cin, cout=cout, nh=nh, epilogue=epi, per_tile=per_tile,
+        row = dict(name=name, task=task, n=n, cin=cin, cout=cout, nh=nh, epilogue=epi,
+                   per_tile=per_tile,
                    kernel="mma.sync" if plan is None else "wgmma",
                    smem_bytes=None if plan is None else plan["smem_bytes"],
                    max_abs_err=max_err, median_rel=med, frac_rel_gt_0p1=frac,
@@ -597,7 +641,395 @@ def phase_reference(dev):
     log(f"reference syntype probs: max |diff| {int(d.max())} LSB, within 2 LSB {ok:.6f}")
     if ok < 0.999:
         raise AssertionError(f"kernel path vs plain CPU path: only {ok:.5f} within 2 LSB")
+    # the organelles U-Net (trained weights, Cin 8 into the first conv):
+    # reported, not held to the syntype budget
+    model, params = load_model(packaged_model_path("organelles"))
+    kw = dict(tile_shape=(64, 64, 32), halo=(16, 16, 8), mode="probs")
+    got = DenseTilePredictor(model, params, device=dev, **kw).predict_array(vol)
+    ref = DenseTilePredictor(model, params, device="cpu", **kw).predict_array(vol)
+    d = np.abs(got.astype(np.int16) - ref.astype(np.int16))
+    log("reference organelles probs: " + json.dumps(dict(
+        max_abs_lsb=int(d.max()), within_2_lsb=float(np.mean(d <= 2)),
+        within_8_lsb=float(np.mean(d <= 8)),
+        argmax_stable=float(np.mean(got.argmax(-1) == ref.argmax(-1))),
+        max_prob=int(ref.max()), share_above_250=float(np.mean(ref.max(-1) > 250)))))
     return ok
+
+
+def phase_slice_organelles(dev, work: str, kd: str, shape=(512, 512, 256)):
+    """Step 1 for step 2: ``predict_cellorganelles`` streamed, then with the
+    raw volume resident (``ResidentDensePredictor``). Outputs on disk equal
+    (else within 3/255 with the argmax stable on >= 99.9%), every conv
+    kernel launched per dispatch, the resident run's mi/vc maps registered
+    and equal to disk. Returns (target paths of the resident run, launches)."""
+    import numpy as np
+    import torch
+
+    from syconn_tpu_torch.exec.exec_dense_prediction import predict_cellorganelles
+    from syconn_tpu_torch.io import resident
+    from syconn_tpu_torch.io.chunked import ChunkedVolume
+    from syconn_tpu_torch.ops.conv3d import LAUNCHES, reset_launch_counts
+
+    launches = {k: 0 for k in LAUNCHES}
+    outs = {}
+    for mode in ("stream", "resident"):
+        targets = {c: os.path.join(work, f"org_{mode}_{c}") for c in ("mi", "vc", "sj")}
+        if mode == "resident":
+            vol = ChunkedVolume.open(kd).load_raw(size=shape)
+            if not resident.put(kd, "raw", vol, device=dev):
+                raise AssertionError("the resident store refused the raw volume")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        stats = predict_cellorganelles(kd, targets, tile_shape=(256, 256, 128), halo=(32, 32, 16),
+                                       device=dev, show_progress=False)
+        counts = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        if stats["route"] != mode:
+            raise AssertionError(f"organelles {mode}: took the {stats['route']} route")
+        for k, per in PER_TILE["organelles"].items():
+            if counts[k] <= 0 or counts[k] != stats["dispatches"] * per:
+                raise AssertionError(f"organelles {mode}: {k} launched {counts[k]} times, "
+                                     f"expected {stats['dispatches']} dispatches x {per}")
+            launches[k] += counts[k]
+        outs[mode] = {c: ChunkedVolume.open(p).load_raw(size=shape) for c, p in targets.items()}
+        line = dict(stats, peak_bytes=int(peak), launches=counts,
+                    tile_batch=stats.get("tile_batch", 1))
+        log(f"slice organelles {mode} " + json.dumps(line))
+        if mode == "resident":
+            if sorted(stats["registered"]) != ["mi", "sj", "vc"]:
+                raise AssertionError(f"organelles: registered {stats['registered']}, the "
+                                     "resident run must register every class map")
+            for c in ("mi", "vc"):
+                reg = resident.get(targets[c], "raw")
+                if reg is None or not np.array_equal(reg.cpu().numpy(), outs[mode][c]):
+                    raise AssertionError(f"organelles: registered {c} map != disk")
+            resident.drop(kd)
+            res_targets = targets
+    # the three stored classes and the background as 255 minus their sum
+    stacked = {m: np.stack([outs[m][c] for c in ("mi", "vc", "sj")], -1).astype(np.int16)
+               for m in outs}
+    d = np.abs(stacked["stream"] - stacked["resident"])
+    arg = [np.concatenate([255 - v.sum(-1, keepdims=True), v], -1).argmax(-1)
+           for v in stacked.values()]
+    stable = float(np.mean(arg[0] == arg[1]))
+    log(f"slice organelles: streaming vs resident max |diff| {int(d.max())} LSB, "
+        f"argmax stable {stable:.6f}, mean mi {float(outs['resident']['mi'].mean()):.3f}, "
+        f"vc {float(outs['resident']['vc'].mean()):.3f}")
+    if int(d.max()) > 3 or stable < 0.999:
+        raise AssertionError("organelles: streaming and resident outputs differ beyond 3 LSB "
+                             "or the argmax budget")
+    return res_targets, launches
+
+
+def blob_map(shape, co: str):
+    """Seeded organelle probability map (uint8): noise below 0.8 x the
+    type's threshold, and on a jittered grid anisotropic ellipsoids with a
+    graded profile (255 at the centre, 127 at the rim), a quarter of them
+    as touching pairs along x: one component each that the erosion-seeded
+    watershed must split.
+    Returns (map, number of separate blob groups, number of blobs)."""
+    import numpy as np
+
+    from syconn_tpu_torch.exec.exec_init import CELL_OBJECTS
+
+    cfg = BLOBS[co]
+    rng = np.random.default_rng(cfg["seed"])
+    thr = CELL_OBJECTS["probathresholds"][co] * 255.0
+    vol = rng.integers(0, int(0.8 * thr), shape, dtype=np.uint8)
+    sp = np.asarray(cfg["spacing"])
+    n_groups = n_blobs = 0
+    for g in np.ndindex(*(np.asarray(shape) // sp)):
+        kind = rng.random()
+        if kind > 0.75:
+            continue
+        centre = (np.asarray(g) + 0.5) * sp + rng.uniform(-0.1, 0.1, 3) * sp
+        radii = np.asarray(cfg["radii"]) * rng.uniform(0.9, 1.15)
+        blobs = [centre]
+        if kind < 0.25:
+            dx = np.array([cfg["sep"] * radii[0] / 2, 0, 0])
+            blobs = [centre - dx, centre + dx]
+        n_groups += 1
+        for c in blobs:
+            n_blobs += 1
+            lo = np.maximum(np.floor(c - radii).astype(int), 0)
+            hi = np.minimum(np.ceil(c + radii).astype(int) + 1, shape)
+            ax = [(np.arange(lo[i], hi[i]) - c[i]) / radii[i] for i in range(3)]
+            d2 = ax[0][:, None, None] ** 2 + ax[1][None, :, None] ** 2 + ax[2][None, None, :] ** 2
+            val = np.where(d2 <= 1, 255 * (1 - 0.5 * d2), 0).astype(np.uint8)
+            box = vol[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]]
+            np.maximum(box, val, out=box)
+    return vol, n_groups, n_blobs
+
+
+def phase_slice_objects(dev, work: str, registered=None, shape=(512, 512, 256)):
+    """Step 2a: ``kd_init`` per organelle on seeded blob maps, resident and
+    streaming through the device chain on the full volume, streaming and on
+    the host on a 256x256x128 sub-volume; segmentations equal. Then on the
+    maps the organelles slice registered. Returns organelle -> the resident
+    run's segmentation path, and organelle -> its map's path."""
+    import numpy as np
+    import torch
+
+    from syconn_tpu_torch.exec.exec_init import CELL_OBJECTS, kd_init
+    from syconn_tpu_torch.io import resident
+    from syconn_tpu_torch.io.chunked import ChunkedVolume
+    from syconn_tpu_torch.ops.cc_torch import connected_components_torch
+    from syconn_tpu_torch.ops.morphology import get_aniso_struct
+    from syconn_tpu_torch.ops.morphology_torch import _split_ops, morphology_chain_device
+
+    sub = STEP2_CHUNK
+    seg_paths, prob_paths = {}, {}
+    for co in ("mi", "vc"):
+        t0 = time.perf_counter()
+        prob, n_groups, n_blobs = blob_map(shape, co)
+        paths = {k: os.path.join(work, f"{co}_{k}") for k in ("prob", "prob_sub")}
+        for k, data in (("prob", prob), ("prob_sub", prob[:sub[0], :sub[1], :sub[2]])):
+            ChunkedVolume.create(paths[k], scale=(10, 10, 20), boundary=data.shape,
+                                 chunk_shape=STEP2_CHUNK).save_raw(data)
+        # components of the thresholded map after the chain's opening and
+        # closing, over the whole volume: the count without the watershed
+        pre_ops, _ = _split_ops(CELL_OBJECTS["extract_morph_op"][co])
+        thr = CELL_OBJECTS["probathresholds"][co] * 255.0
+        _, n_cc = connected_components_torch(morphology_chain_device(
+            prob >= thr, pre_ops, get_aniso_struct((10, 10, 20)), device=dev), device=dev)
+        log(f"slice objects {co}: map {shape} with {n_blobs} blobs in {n_groups} groups, "
+            f"{n_cc} components after {pre_ops}, written in {time.perf_counter() - t0:.3f} s")
+        segs = {}
+        runs = (("resident", "prob", shape, True), ("device", "prob", shape, True),
+                ("device", "prob_sub", sub, True), ("host", "prob_sub", sub, False))
+        for route, src, sh, use_device in runs:
+            tag = f"{route}_{src}"
+            out = os.path.join(work, f"{co}_seg_{tag}")
+            if route == "resident" and not resident.put(paths[src], "raw", prob, device=dev):
+                raise AssertionError("the resident store refused the probability map")
+            torch.cuda.synchronize()
+            stats = kd_init(co, paths[src], out, chunk_size=STEP2_CHUNK, overwrite=True,
+                            use_device=use_device, device=dev)
+            resident.drop(paths[src])
+            if stats["route"] != route:
+                raise AssertionError(f"objects {co} {tag}: took the {stats['route']} route")
+            segs[tag] = ChunkedVolume.open(out).load_seg(size=sh)
+            line = dict(stats, volume=list(sh), mvox_per_s=float(np.prod(sh)) / stats["seconds"] / 1e6)
+            log(f"slice objects {co} {route} " + json.dumps(line))
+            if route == "resident":
+                seg_paths[co] = out
+                n_obj = stats["n_objects"]
+        for a, b in (("resident_prob", "device_prob"), ("device_prob_sub", "host_prob_sub")):
+            if not segs[a].any() or not np.array_equal(segs[a], segs[b]):
+                raise AssertionError(f"objects {co}: {a} segmentation empty or != {b}")
+        if n_obj <= n_cc:
+            raise AssertionError(f"objects {co}: {n_obj} objects from {n_cc} components; "
+                                 "the watershed split none")
+        log(f"slice objects {co}: resident == device (full), device == host (sub-volume); "
+            f"{n_obj} objects from {n_cc} components, {n_blobs} blobs in {n_groups} groups")
+        prob_paths[co] = paths["prob"]
+    if registered:
+        for co in ("mi", "vc"):
+            if resident.get(registered[co], "raw") is None:
+                raise AssertionError(f"the registered {co} map is gone")
+            stats = kd_init(co, registered[co], os.path.join(work, f"{co}_seg_chain"),
+                            chunk_size=STEP2_CHUNK, overwrite=True, device=dev)
+            if stats["route"] != "resident":
+                raise AssertionError(f"objects {co} chain: took the {stats['route']} route")
+            log(f"slice objects {co} chain " + json.dumps(stats))
+    return seg_paths, prob_paths
+
+
+def phase_slice_props(dev, work: str, seg_paths, prob_paths, shape=(512, 512, 256),
+                      min_objects: int = 100):
+    """Step 2b: ``init_cell_subcell_tables`` over the contact slice's cell
+    segmentation (one chunk of dense labels, > 4096 ids) held resident, and
+    the mi/vc segmentations; tables and mapping counts equal to the host
+    scan's, at least ``min_objects`` per organelle after ``min_obj_vx``."""
+    import numpy as np
+    import torch
+
+    from syconn_tpu_torch.exec.exec_init import CELL_OBJECTS, init_cell_subcell_tables
+    from syconn_tpu_torch.io import resident
+    from syconn_tpu_torch.io.chunked import ChunkedVolume
+    from syconn_tpu_torch.proc.sd_proc import map_subcell_extract_props_tables
+
+    hot = (tuple(s // 5 for s in shape), tuple(max(8, s // 12) for s in shape))
+    seg = blocky_labels(shape, (48, 48, 96), seed=7, hot=hot)
+    c = STEP2_CHUNK
+    dense = np.arange(np.prod([x // 8 for x in c]), dtype=np.uint64).reshape(
+        [x // 8 for x in c]) + (1 << 24)
+    for ax in range(3):
+        dense = np.repeat(dense, 8, axis=ax)
+    seg[c[0]:2 * c[0], :c[1], :c[2]] = dense  # chunk (1, 0, 0): 16384 ids at the deployment chunk
+    seg_path = os.path.join(work, "sv_seg_props")
+    ChunkedVolume.create(seg_path, scale=(10, 10, 20), boundary=shape,
+                         chunk_shape=STEP2_CHUNK).save_seg(seg)
+    if not resident.put(seg_path, "seg", seg, device=dev):
+        raise AssertionError("the resident store refused the cell segmentation")
+    torch.cuda.synchronize()
+    # overwrite=False: the segmentations of the objects slice are complete
+    # and kept; the scan's cache starts empty
+    res = init_cell_subcell_tables(seg_path, prob_paths, seg_paths, chunk_size=STEP2_CHUNK,
+                                   overwrite=False, device=dev)
+    resident.clear()
+    ref = map_subcell_extract_props_tables(
+        seg_path, {co: seg_paths[co] for co in ("mi", "vc")}, chunk_shape=STEP2_CHUNK,
+        min_obj_vx=CELL_OBJECTS["min_obj_vx"], cache_root=os.path.join(work, "props_host"),
+        device=dev)
+    if any(v is not None for v in res["extraction"].values()):
+        raise AssertionError("props: the complete organelle segmentations were extracted again")
+    if res["stats"]["cell_route"] != "resident" or ref["stats"]["cell_route"] != "host":
+        raise AssertionError(f"props: routes {res['stats']['cell_route']}/"
+                             f"{ref['stats']['cell_route']}")
+    for t in ("sv", "mi", "vc"):
+        for a, b in zip(res["tables"][t], ref["tables"][t]):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"props: {t} table of the resident scan != host scan")
+    if res["mapping"] != ref["mapping"] or res["sc_sizes"] != ref["sc_sizes"]:
+        raise AssertionError("props: mapping counts differ between the scans")
+    if min(res["counts"]["mi"], res["counts"]["vc"]) < min_objects or \
+            res["counts"]["sv"] <= dense.max() - (1 << 24) + 1:
+        raise AssertionError(f"props: counts {res['counts']}")
+    for tag, r in (("resident", res), ("host", ref)):
+        st = r["stats"]
+        line = dict(st, counts=r["counts"], mvox_per_s=float(np.prod(shape)) / st["seconds"] / 1e6,
+                    cell_scan_ms_per_chunk=st["cell_scan_seconds"] / st["chunks"] * 1e3)
+        log(f"slice props {tag} " + json.dumps(line))
+    log(f"slice props: resident scan == host scan, counts {res['counts']}")
+
+
+def phase_step2_ops(dev):
+    """Step 2's device functions, each alone on one deployment chunk (the mi
+    window: chunk + halo 17 = 290 x 290 x 162; label chunks 256 x 256 x
+    128), against the host function the JAX package's host route runs on
+    the same input. Device ops without a host sync inside are timed with
+    CUDA events (``cuda_ms``); those that sync (connected components: one
+    sync a round; the wrappers' readbacks) by the host clock around a
+    synchronised call, median of 3."""
+    import numpy as np
+    import torch
+    from scipy import ndimage
+
+    from syconn_tpu_torch.exec.exec_init import CELL_OBJECTS
+    from syconn_tpu_torch.ops.cc_torch import (connected_components_device,
+                                               connected_components_torch)
+    from syconn_tpu_torch.ops.morphology import apply_morphological_operations, get_aniso_struct
+    from syconn_tpu_torch.ops.morphology_torch import (_segment_chunk_packed, _split_ops,
+                                                       segment_chunk_device)
+    from syconn_tpu_torch.ops.props import object_properties_arrays, pair_counts
+    from syconn_tpu_torch.ops.props_torch import (ResidentPropsScanner, object_properties_device,
+                                                  pair_counts_device)
+
+    def wall_ms(fn, reps=3):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[len(times) // 2]
+
+    def host_ms(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    struct = get_aniso_struct((10, 10, 20))
+    ops = CELL_OBJECTS["extract_morph_op"]["mi"]
+    thr = CELL_OBJECTS["probathresholds"]["mi"] * 255.0
+    pre, n_tr = _split_ops(ops)
+    win = (STEP2_CHUNK[0] + 34, STEP2_CHUNK[1] + 34, STEP2_CHUNK[2] + 34)
+    prob, _, _ = blob_map(win, "mi")
+    prob_d = torch.from_numpy(prob).to(dev)
+    struct_d = torch.from_numpy(struct).to(dev)
+    rows = []
+
+    def row(op, shape, ms, timing, host, host_what):
+        r = dict(op=op, input=list(shape), ms=ms, timing=timing, host_ms=host, host=host_what)
+        rows.append(r)
+        log("step2 op " + json.dumps(r))
+
+    ms = cuda_ms(lambda: _segment_chunk_packed(prob_d, thr, struct_d, pre, n_tr, 0.0),
+                 warmup=2, reps=5, inner=4)
+    h, (mask, eroded) = host_ms(lambda: (lambda m: (m, apply_morphological_operations(
+        m, ["binary_erosion"] * n_tr, struct=struct)))(apply_morphological_operations(
+            prob >= thr, list(pre), struct=struct)))
+    row("_segment_chunk_packed (mi chain: 8 SE-count convs, pack)", win, ms, "cuda events", h,
+        "scipy apply_morphological_operations")
+    ms = wall_ms(lambda: segment_chunk_device(prob, thr, ops, struct, device=dev))
+    row("segment_chunk_device (upload, chain, packed readback, unpack)", win, ms, "wall", h,
+        "scipy apply_morphological_operations")
+    got = segment_chunk_device(prob, thr, ops, struct, device=dev)
+    if not (np.array_equal(got[0], mask) and np.array_equal(got[1], eroded)):
+        raise AssertionError("step2 ops: device chain != scipy chain on the mi window")
+    er_d = torch.from_numpy(eroded).to(dev)
+    ms = wall_ms(lambda: connected_components_device(er_d))
+    h, (lab_h, n_h) = host_ms(lambda: ndimage.label(
+        eroded, structure=ndimage.generate_binary_structure(3, 1)))
+    row("connected_components_device (eroded mi seeds)", win, ms, "wall", h, "scipy ndimage.label")
+    ms = wall_ms(lambda: connected_components_torch(eroded, device=dev))
+    lab_t, n_t = connected_components_torch(eroded, device=dev)
+    if n_t != n_h or not np.array_equal(lab_t, lab_h):
+        raise AssertionError("step2 ops: device CC != scipy on the mi seeds")
+    row("connected_components_torch (upload, CC, compact, download)", win, ms, "wall", h,
+        "scipy ndimage.label")
+    cell = blocky_labels(STEP2_CHUNK, (48, 48, 96), seed=7).astype(np.int32)
+    c8 = [x // 8 for x in STEP2_CHUNK]
+    dense = np.arange(np.prod(c8), dtype=np.int32).reshape(c8) + 1
+    for ax in range(3):
+        dense = np.repeat(dense, 8, axis=ax)
+    mi_lab = lab_t[17:17 + STEP2_CHUNK[0], 17:17 + STEP2_CHUNK[1], 17:17 + STEP2_CHUNK[2]]
+    for name, vol, mx in (("blocky cell labels", cell, 4096),
+                          (f"dense labels, {int(dense.max())} ids", dense, int(dense.max()))):
+        vd = torch.from_numpy(vol).to(dev)
+        ms = cuda_ms(lambda: object_properties_device(vd, mx), warmup=2, reps=5, inner=4)
+        h, _ = host_ms(lambda: object_properties_arrays(vol))
+        row(f"object_properties_device ({name}, max_ids {mx})", vol.shape, ms, "cuda events", h,
+            "object_properties_arrays")
+        scan = ResidentPropsScanner(vd, chunk=STEP2_CHUNK)
+        ms = wall_ms(lambda: scan.props((0, 0, 0)))
+        row(f"ResidentPropsScanner.props ({name}, from max_ids 4096)", vol.shape, ms, "wall", h,
+            "object_properties_arrays")
+    a_d = torch.from_numpy(mi_lab.astype(np.int32)).to(dev)
+    c_d = torch.from_numpy(cell).to(dev)
+    ms = cuda_ms(lambda: pair_counts_device(a_d, c_d, 4096), warmup=2, reps=5, inner=4)
+    h, _ = host_ms(lambda: pair_counts(mi_lab, cell))
+    row("pair_counts_device (mi labels x cell labels)", mi_lab.shape, ms, "cuda events", h,
+        "pair_counts")
+    return rows
+
+
+def phase_reference_step2(dev):
+    """The device functions of step 2 on the card against their CPU runs on
+    small seeded inputs: all exact."""
+    import numpy as np
+    import torch
+
+    from syconn_tpu_torch.ops.cc_torch import connected_components_device
+    from syconn_tpu_torch.ops.morphology import get_aniso_struct
+    from syconn_tpu_torch.ops.morphology_torch import morphology_chain_device
+    from syconn_tpu_torch.ops.props_torch import object_properties_device, pair_counts_device
+
+    rng = np.random.default_rng(9)
+    struct = get_aniso_struct((10, 10, 20))
+    mask = rng.random((64, 56, 40)) < 0.45
+    ops = ["binary_opening", "binary_closing"] + ["binary_erosion"] * 4
+    checks = {"morphology_chain_device": np.array_equal(
+        morphology_chain_device(mask, ops, struct, device=dev),
+        morphology_chain_device(mask, ops, struct, device="cpu"))}
+    m = torch.from_numpy(rng.random((64, 56, 40)) < 0.5)
+    checks["connected_components_device"] = torch.equal(
+        connected_components_device(m.to(dev)).cpu(), connected_components_device(m))
+    vol = torch.from_numpy(rng.integers(0, 3000, (64, 48, 40)).astype(np.int32))
+    checks["object_properties_device"] = all(
+        torch.equal(a.cpu(), b) for mx in (1024, 4096) for a, b in zip(
+            object_properties_device(vol.to(dev), mx), object_properties_device(vol, mx)))
+    a = torch.from_numpy(rng.integers(0, 40, (64, 48, 40)).astype(np.int32))
+    b = torch.from_numpy(rng.integers(0, 40, (64, 48, 40)).astype(np.int32))
+    checks["pair_counts_device"] = all(
+        torch.equal(x.cpu(), y) for mx in (256, 2048) for x, y in zip(
+            pair_counts_device(a.to(dev), b.to(dev), mx), pair_counts_device(a, b, mx)))
+    log("reference step2: card == cpu " + json.dumps(checks))
+    if not all(checks.values()):
+        raise AssertionError(f"step 2 device functions differ from the CPU: {checks}")
 
 
 def main() -> int:
@@ -610,9 +1042,11 @@ def main() -> int:
         print("chip_smoke: run from a checkout holding syconn_tpu_torch", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from syconn_tpu_torch.io import resident
     from syconn_tpu_torch.ops import build
     from syconn_tpu_torch.utils.device import default_device
 
+    t_all = time.perf_counter()
     dev = default_device()
     card = smi()
     log(f"card: {card}")
@@ -652,12 +1086,33 @@ def main() -> int:
         contacts = phase_slice_contacts(dev, work, sym_path=os.path.join(work, "sym"),
                                         asym_path=os.path.join(work, "asym"))
         phase_reference_contacts(dev, work)
+        t_step2 = time.perf_counter()
+        fwd["organelles"] = phase_forward(dev, "organelles")
+        registered, org_launches = phase_slice_organelles(dev, work, os.path.join(work, "raw"))
+        for k, n in org_launches.items():
+            launches[k] += n
+        seg_paths, prob_paths = phase_slice_objects(dev, work, registered)
+        resident.clear()
+        phase_slice_props(dev, work, seg_paths, prob_paths)
+        phase_reference_step2(dev)
+        phase_step2_ops(dev)
+        log(f"step 2 phases {time.perf_counter() - t_step2:.3f} s")
     finally:
+        resident.clear()
         shutil.rmtree(work, ignore_errors=True)
+
+    for name in REPLACES:
+        rs = [r for r in rows if r["name"] == name and r["task"] == "organelles" and r["per_tile"] > 0]
+        log(f"organelles tile {name}: " + json.dumps(dict(
+            ms=sum(r["kernel_ms"] * r["per_tile"] for r in rs),
+            plain_ms=sum(r["plain_ms"] * r["per_tile"] for r in rs),
+            library_ms=sum(r["library_ms"] * r["per_tile"] for r in rs),
+            bound_ms=sum(r["bound_ms"] * r["per_tile"] for r in rs),
+            launches_per_tile=sum(r["per_tile"] for r in rs))))
 
     kernels = []
     for name in REPLACES:
-        rs = [r for r in rows if r["name"] == name and r["per_tile"] > 0]
+        rs = [r for r in rows if r["name"] == name and r["task"] == "syntype" and r["per_tile"] > 0]
         per_tile = lambda key: sum(r[key] * r["per_tile"] for r in rs)  # noqa: E731
         bf = sum(r["bound_ms"] * r["per_tile"] for r in rs if r["bound_by"] == "operations")
         kernels.append(dict(
@@ -674,6 +1129,7 @@ def main() -> int:
         launches=contacts["launches"], max_abs_err=max(r["max_abs_err"] for r in contact_rows),
         ms=crow["kernel_ms"], plain_ms=crow["plain_ms"], bound_ms=crow["bound_ms"],
         bound_by=crow["bound_by"], library_ms=None))
+    log(f"whole run {time.perf_counter() - t_all:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

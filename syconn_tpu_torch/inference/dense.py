@@ -18,11 +18,19 @@ Execution model:
 
 On an out-of-memory error at the first dispatch, ``predict_dense_to_kd``
 halves the largest tile axis and rebuilds (``shrink_tile_shape``).
+
+When the source volume is held in device memory (``io.resident``),
+``predict_dense_to_kd`` takes :class:`ResidentDensePredictor`: tiles are cut
+from the padded device tensor and go through the engine ``tile_batch`` at a
+time, the packed outputs come back in one transfer, and each class map is
+reassembled on the device and registered in ``io.resident`` for the next
+step (object extraction reads ``mi``/``vc`` from there).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -30,7 +38,9 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from ..io import resident
 from ..io.chunked import ChunkedVolume
 from ..models.convert import params_from_flax
 from ..models.unet_engine import engine_supported, unet_apply_packed
@@ -38,7 +48,8 @@ from ..utils.device import default_device
 
 log = logging.getLogger("syconn_tpu_torch.inference")
 
-__all__ = ["DenseTilePredictor", "predict_dense_to_kd", "shrink_tile_shape"]
+__all__ = ["DenseTilePredictor", "ResidentDensePredictor", "predict_dense_to_kd",
+           "shrink_tile_shape"]
 
 
 def _cdiv(a, b):
@@ -213,6 +224,90 @@ class DenseTilePredictor:
         return out
 
 
+class ResidentDensePredictor(DenseTilePredictor):
+    """Whole-volume variant: the volume is on the device once (a resident
+    tensor is used where it is, a numpy volume uploaded); every tile is cut
+    from the padded device tensor and ``tile_batch`` tiles go through the
+    engine as one batch. The packed outputs stay on the device.
+
+    On a device OOM the tile batch halves, down to 1. Environment override:
+    ``SYCONN_TORCH_RESIDENT_TILE_BATCH``. ``n_forward`` counts the batches
+    run.
+    """
+
+    def __init__(self, *a, tile_batch: int = 4, **kw):
+        super().__init__(*a, **kw)
+        tb = os.environ.get("SYCONN_TORCH_RESIDENT_TILE_BATCH")
+        self.tile_batch = max(int(tb) if tb else int(tile_batch), 1)
+        self.n_forward = 0
+
+    @torch.no_grad()
+    def _run(self, padded: torch.Tensor, grid, k: int) -> torch.Tensor:
+        ts = [int(t) for t in self.tile_shape]
+        win = [ts[i] + 2 * int(self.halo[i]) for i in range(3)]
+        offs = [(gx * ts[0], gy * ts[1], gz * ts[2]) for gx in range(grid[0])
+                for gy in range(grid[1]) for gz in range(grid[2])]
+        n_tiles = len(offs)
+        k = max(min(k, n_tiles), 1)
+        # pad the offset list to a multiple of k with the last offset:
+        # recomputed, then dropped from the output
+        offs += [offs[-1]] * ((-n_tiles) % k)
+        outs = []
+        for g in range(0, len(offs), k):
+            wins = torch.stack([padded[o[0]:o[0] + win[0], o[1]:o[1] + win[1],
+                                       o[2]:o[2] + win[2]] for o in offs[g:g + k]])
+            outs.append(self._forward(wins))
+            self.n_forward += 1
+        return torch.cat(outs)[:n_tiles]
+
+    def predict_volume_packed(self, vol):
+        """vol (X, Y, Z) uint8, numpy or a device tensor -> (packed tiles
+        (T, sx, sy, sz, C * pvox) on the device, tile grid)."""
+        sh = np.array(vol.shape, np.int64)
+        ts, h = self.tile_shape, self.halo
+        grid = tuple(int(g) for g in _cdiv(sh, ts))
+        pad = [(int(h[i]), int(grid[i] * ts[i] - sh[i] + h[i])) for i in range(3)]
+        if isinstance(vol, np.ndarray):
+            padded = torch.from_numpy(np.pad(vol.astype(np.uint8, copy=False), pad)).to(
+                self.device)
+        else:
+            padded = F.pad(vol.to(self.device, torch.uint8),
+                           (pad[2][0], pad[2][1], pad[1][0], pad[1][1], pad[0][0], pad[0][1]))
+        tb = self.tile_batch
+        while True:
+            try:
+                out = self._run(padded, grid, tb)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)  # surface an OOM here
+                return out, grid
+            except RuntimeError as e:
+                if tb <= 1 or not _is_oom(e):
+                    raise
+                tb = max(tb // 2, 1)
+                self.tile_batch = tb
+                torch.cuda.empty_cache()
+                log.warning("resident tile batch OOM; retrying with tile_batch=%d", tb)
+
+    @torch.no_grad()
+    def class_volume_device(self, packed: torch.Tensor, grid, ch: int, out_shape) -> torch.Tensor:
+        """One class' full volume from the packed tile stack, on the device:
+        (T, sx, sy, sz, C * pvox) -> (X, Y, Z) uint8 (probs: probabilities;
+        masks: 0/255)."""
+        t, sx, sy, sz, _ = packed.shape
+        C = self.n_classes
+        px, py, pz = (int(p) for p in self.patch)
+        if self.mode == "masks":
+            shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
+            packed = (packed[..., None] >> shifts) & 1
+        one = packed.reshape(t, sx, sy, sz, C, px * py * pz)[:, :, :, :, ch, :]
+        # patched -> full resolution (depth-to-space), then tile grid -> volume
+        one = one.reshape(t, sx, sy, sz, px, py, pz).permute(0, 1, 4, 2, 5, 3, 6)
+        v = one.reshape(tuple(grid) + (sx * px, sy * py, sz * pz)).permute(0, 3, 1, 4, 2, 5)
+        v = v.reshape(grid[0] * sx * px, grid[1] * sy * py, grid[2] * sz * pz)
+        v = v[:out_shape[0], :out_shape[1], :out_shape[2]].contiguous()
+        return v * 255 if self.mode == "masks" else v
+
+
 def predict_dense_to_kd(
     kd_path: str,
     target_paths: Dict[str, str],
@@ -243,19 +338,26 @@ def predict_dense_to_kd(
         mode/thresholds: see :class:`DenseTilePredictor`.
         device: ``None`` = the CUDA card; ``"cpu"`` for the plain versions.
 
+    A source whose 'raw' channel at ``mag`` is held by ``io.resident`` runs
+    through :class:`ResidentDensePredictor` when no ``predictor`` is given
+    (see :func:`_predict_resident`).
+
     Returns timing/throughput stats; ``dispatches`` counts forward passes
-    (the first-dispatch probe included).
+    (the first-dispatch probe included), ``route`` is ``"stream"`` or
+    ``"resident"``.
     """
     src = ChunkedVolume.open(kd_path)
+    res_src = resident.get(kd_path, "raw", mag) if predictor is None else None
     n_dispatch = 0
     if predictor is not None:
         pred = predictor
     else:
         # OOM-adaptive tile sizing: try the requested tile; on a device OOM
         # at the first dispatch halve the largest axis and retry
+        pred_cls = ResidentDensePredictor if res_src is not None else DenseTilePredictor
         while True:
-            pred = DenseTilePredictor(model, params, tile_shape=tile_shape, halo=halo, mode=mode,
-                                      thresholds=thresholds, batch_size=batch_size, device=device)
+            pred = pred_cls(model, params, tile_shape=tile_shape, halo=halo, mode=mode,
+                            thresholds=thresholds, batch_size=batch_size, device=device)
             try:
                 warm = np.zeros((pred.batch_size,) + pred._in_shape[1:], np.uint8)
                 n_dispatch += 1
@@ -290,6 +392,11 @@ def predict_dense_to_kd(
         if mode != "probs":
             raise ValueError("seg output requires probs mode")
         seg_kd = create(seg_path)
+
+    if isinstance(pred, ResidentDensePredictor):
+        return _predict_resident(pred, src, res_src, targets, seg_kd, target_paths,
+                                 channel_mapping, mag, target_mags, io_threads, n_dispatch,
+                                 model, params, thresholds, batch_size)
 
     tiles = [np.array([gx, gy, gz]) * ts for gx in range(grid[0])
              for gy in range(grid[1]) for gz in range(grid[2])]
@@ -364,8 +471,133 @@ def predict_dense_to_kd(
         loader.shutdown()
     dt = time.perf_counter() - t0
     stats = {"n_voxels": n_vox, "seconds": dt, "mvox_per_s": n_vox / dt / 1e6,
-             "tiles": len(tiles), "dispatches": n_dispatch,
+             "tiles": len(tiles), "dispatches": n_dispatch, "route": "stream",
              "tile_shape": [int(t) for t in ts], "halo": [int(x) for x in h]}
     log.info("dense prediction done: %.1f MVx in %.1f s (%.1f MVx/s)",
+             n_vox / 1e6, dt, stats["mvox_per_s"])
+    return stats
+
+
+def _packed_tile_bytes(pred: DenseTilePredictor) -> int:
+    """Device bytes of one tile's packed output as the JAX package counts
+    them: the minor dimension (C * patch voxels) rounded up to XLA's 128
+    lanes. The port's tensors have no lane padding; the rule is kept so that
+    both packages cut the same z-slabs."""
+    dims = [int(pred.tile_shape[i]) // int(pred.patch[i]) for i in range(3)]
+    lane = -(-int(pred.n_classes * np.prod(pred.patch)) // 128) * 128
+    return int(np.prod(dims)) * lane
+
+
+def _predict_resident(pred, src, res_src, targets, seg_kd, target_paths, channel_mapping, mag,
+                      target_mags, io_threads, n_dispatch, model, params, thresholds, batch_size):
+    """The resident branch of :func:`predict_dense_to_kd`.
+
+    The volume (resident, else loaded whole) is predicted in z-slabs when
+    the packed output of all its tiles would exceed 2 GiB; slab seams then
+    see a zero halo, as at the volume border. A device OOM shrinks the tile
+    and rebuilds the predictor. With one slab and a resident source at mag
+    1, each class map is reassembled on the device and registered in
+    ``io.resident`` under its target path; an OOM there skips the
+    registration (logged), and consumers read the chunk store instead.
+    """
+    mode = pred.mode
+    sh = src.mag_shape(mag)
+    t0 = time.perf_counter()
+    vol = res_src if res_src is not None else src.load_raw(offset=(0, 0, 0), size=sh, mag=mag)
+    n_forward = 0
+    while True:
+        ts, h = pred.tile_shape, pred.halo
+        try:
+            grid_all = tuple(int(g) for g in _cdiv(sh, ts))
+            layers = max(1, min(grid_all[2], (2 << 30) // max(
+                _packed_tile_bytes(pred) * grid_all[0] * grid_all[1], 1)))
+            if layers < grid_all[2]:
+                log.info("resident prediction in %d z-slabs of %d tile layers",
+                         -(-grid_all[2] // layers), layers)
+            multi = layers < grid_all[2]
+            z_step = int(layers * ts[2])
+            packed_parts = []
+            for z0 in range(0, int(sh[2]), z_step):
+                packed, grid_s = pred.predict_volume_packed(vol[:, :, z0:min(z0 + z_step,
+                                                                              int(sh[2]))])
+                # several slabs: drain each to the host before the next
+                packed_parts.append((z0, packed.cpu().numpy() if multi else packed, grid_s))
+                del packed
+            break
+        except RuntimeError as e:
+            if not _is_oom(e):
+                raise
+            shrunk = shrink_tile_shape(tuple(int(t) for t in ts), tuple(int(x) for x in h),
+                                       pred.patch)
+            if shrunk is None:
+                raise
+            log.warning("resident forward OOM; retrying with tile %s halo %s", *shrunk)
+            n_forward += pred.n_forward
+            device = pred.device
+            del pred
+            torch.cuda.empty_cache()
+            pred = ResidentDensePredictor(model, params, tile_shape=shrunk[0], halo=shrunk[1],
+                                          mode=mode, thresholds=thresholds,
+                                          batch_size=batch_size, device=device)
+    ts = pred.tile_shape
+    registered = []
+    if mag == 1 and res_src is not None and len(packed_parts) == 1:
+        _, packed, grid_r = packed_parts[0]
+        for name, ch in channel_mapping.items():
+            if name not in target_paths:
+                continue
+            try:
+                cls_vol = pred.class_volume_device(packed, grid_r, int(ch),
+                                                   tuple(int(x) for x in sh))
+            except RuntimeError as e:
+                if not _is_oom(e):
+                    raise
+                log.warning("skipping resident registration of %s output (device "
+                            "reassembly OOM: %.80s)", name, str(e))
+                break
+            if resident.put(target_paths[name], "raw", cls_vol, mag=mag):
+                registered.append(name)
+            del cls_vol
+
+    def write_one(offset, packed_tile):
+        res = pred.unpack(packed_tile[None])[0]
+        s = np.minimum(offset + ts, sh) - offset
+        for name, ch in channel_mapping.items():
+            if name not in targets:
+                continue
+            if mode == "probs":
+                targets[name].save_raw(np.ascontiguousarray(res[:s[0], :s[1], :s[2], ch]),
+                                       offset, target_mags)
+            else:
+                targets[name].save_raw(res[ch, :s[0], :s[1], :s[2]] * np.uint8(255), offset,
+                                       target_mags, downsample="stride")
+        if seg_kd is not None:
+            labels = np.argmax(res[:s[0], :s[1], :s[2]], axis=-1).astype(np.uint64)
+            seg_kd.save_seg(labels, offset, target_mags)
+
+    n_tiles = 0
+    with ThreadPoolExecutor(max_workers=io_threads) as writer:
+        futs = []
+        for z_base, packed, grid_r in packed_parts:
+            packed = packed if isinstance(packed, np.ndarray) else packed.cpu().numpy()
+            k = 0
+            for gx in range(grid_r[0]):
+                for gy in range(grid_r[1]):
+                    for gz in range(grid_r[2]):
+                        off = np.array([gx, gy, gz]) * ts
+                        off[2] += z_base
+                        futs.append(writer.submit(write_one, off, packed[k]))
+                        k += 1
+            n_tiles += k
+        for f in futs:
+            f.result()
+    dt = time.perf_counter() - t0
+    n_vox = int(np.prod(sh))
+    stats = {"n_voxels": n_vox, "seconds": dt, "mvox_per_s": n_vox / dt / 1e6,
+             "tiles": n_tiles, "dispatches": n_dispatch + n_forward + pred.n_forward,
+             "route": "resident", "tile_batch": pred.tile_batch, "slabs": len(packed_parts),
+             "registered": registered, "tile_shape": [int(t) for t in ts],
+             "halo": [int(x) for x in pred.halo]}
+    log.info("dense prediction (resident) done: %.1f MVx in %.1f s (%.1f MVx/s)",
              n_vox / 1e6, dt, stats["mvox_per_s"])
     return stats

@@ -9,6 +9,8 @@ majority-partner vote and per-contact synapse statistics (counterpart of
   (``min << 32 | max``).
 * :func:`extract_cs_syntype` — per-contact-site synapse stats (syn voxel
   coords, sym/asym counts).
+* :func:`relabel_vol`, :func:`relabel_vol_nonexist2zero` — label remaps
+  through a dict (host library hash map, else ``searchsorted``).
 
 ``detect_cs`` is the exact reference of the device formulations
 (:mod:`.contacts_cuda`, :mod:`.contacts_torch`); they call it for what they
@@ -32,6 +34,8 @@ __all__ = [
     "detect_seg_boundaries",
     "detect_cs",
     "extract_cs_syntype",
+    "relabel_vol",
+    "relabel_vol_nonexist2zero",
 ]
 
 
@@ -151,3 +155,36 @@ def extract_cs_syntype(cs_seg: np.ndarray, syn_mask: np.ndarray, asym_mask: np.n
     cs_asym = {int(i): int(c) for i, c in zip(a_ids, a_cnt)}
     cs_sym = {int(i): int(c) for i, c in zip(s_ids, s_cnt)}
     return cs_props, syn_props, cs_asym, cs_sym, voxels_syn
+
+
+def relabel_vol(vol: np.ndarray, label_map: Dict[int, int]) -> np.ndarray:
+    """In-place label remap; labels missing from the map are kept."""
+    return _relabel(vol, label_map, nonexist2zero=False)
+
+
+def relabel_vol_nonexist2zero(vol: np.ndarray, label_map: Dict[int, int]) -> np.ndarray:
+    """In-place label remap; labels missing from the map become 0."""
+    return _relabel(vol, label_map, nonexist2zero=True)
+
+
+def _relabel(vol: np.ndarray, label_map: Dict[int, int], nonexist2zero: bool) -> np.ndarray:
+    if not vol.flags.c_contiguous or not vol.flags.writeable:
+        vol = np.ascontiguousarray(vol).copy()
+    lib = get_native()
+    if lib is not None and vol.dtype in (np.uint32, np.uint64) and len(label_map) > 0:
+        keys = np.fromiter(label_map.keys(), dtype=vol.dtype, count=len(label_map))
+        vals = np.fromiter(label_map.values(), dtype=vol.dtype, count=len(label_map))
+        fn = lib.relabel_u32 if vol.dtype == np.uint32 else lib.relabel_u64
+        fn(vol.reshape(-1), vol.size, keys, vals, len(keys), int(nonexist2zero))
+        return vol
+    if len(label_map) == 0:
+        if nonexist2zero:
+            vol[...] = 0
+        return vol
+    keys = np.array(sorted(label_map.keys()), dtype=vol.dtype)
+    vals = np.array([label_map[int(k)] for k in keys], dtype=vol.dtype)
+    flat = vol.reshape(-1)
+    pos = np.clip(np.searchsorted(keys, flat), 0, len(keys) - 1)
+    hit = keys[pos] == flat
+    vol[...] = np.where(hit, vals[pos], 0 if nonexist2zero else flat).reshape(vol.shape)
+    return vol

@@ -3,15 +3,35 @@
 // Exact per-voxel scans, counterparts of the same functions in the JAX
 // package's syconn_tpu/csrc/kernels.cpp. They are not device kernels: the
 // port uses them for the boundary gate, for the columns whose label
-// diversity overflows the CUDA kernel's candidate table, and for chunks
-// whose ids need more than 31 bits.
+// diversity overflows the CUDA kernel's candidate table, for chunks whose
+// ids need more than 31 bits, and for the label remaps of object extraction.
 
+#include <cstddef>
 #include <cstdint>
 #include <unordered_map>
 
 #if defined(_OPENMP)
 #include <omp.h>
 #endif
+
+// In-place label remap through a hash map; labels missing from the map are
+// kept, or set to 0 with nonexist2zero.
+template <typename T>
+static void relabel(T* vol, int64_t n, const T* keys, const T* vals, int64_t n_map,
+                    int nonexist2zero) {
+  std::unordered_map<T, T> m;
+  m.reserve(static_cast<std::size_t>(n_map) * 2);
+  for (int64_t i = 0; i < n_map; ++i) m[keys[i]] = vals[i];
+#pragma omp parallel for schedule(static)
+  for (int64_t i = 0; i < n; ++i) {
+    auto it = m.find(vol[i]);
+    if (it != m.end()) {
+      vol[i] = it->second;
+    } else if (nonexist2zero) {
+      vol[i] = 0;
+    }
+  }
+}
 
 extern "C" {
 
@@ -98,6 +118,16 @@ void detect_cs_u32(const uint32_t* seg, const uint8_t* bdry, int64_t nx,
       }
     }
   }
+}
+
+void relabel_u64(uint64_t* vol, int64_t n, const uint64_t* keys, const uint64_t* vals,
+                 int64_t n_map, int nonexist2zero) {
+  relabel(vol, n, keys, vals, n_map, nonexist2zero);
+}
+
+void relabel_u32(uint32_t* vol, int64_t n, const uint32_t* keys, const uint32_t* vals,
+                 int64_t n_map, int nonexist2zero) {
+  relabel(vol, n, keys, vals, n_map, nonexist2zero);
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
-"""Binary morphology with anisotropic structuring elements (counterpart of
-``syconn_tpu/ops/morphology.py``; scipy).
+"""Binary morphology with anisotropic structuring elements and Gaussian blur
+(counterpart of ``syconn_tpu/ops/morphology.py``; scipy).
 
 The structuring element is dilated in the xy-plane by the z/x voxel-size
 ratio so operations act isotropically in nanometers.
@@ -16,6 +16,8 @@ __all__ = [
     "get_aniso_struct",
     "apply_morphological_operations",
     "multi_mop_backgroundonly",
+    "gaussian_blur",
+    "morphology_halo",
 ]
 
 _MOPS = {
@@ -98,3 +100,17 @@ def multi_mop_backgroundonly(
         region = out[psl]
         region[grown & (region == 0)] = lab
     return out
+
+
+def gaussian_blur(arr: np.ndarray, sigma) -> np.ndarray:
+    """Separable Gaussian blur (float32 output)."""
+    return ndimage.gaussian_filter(np.asarray(arr, dtype=np.float32), sigma=sigma)
+
+
+def morphology_halo(operations: Sequence[str], sigma=0, struct_extent: int = 1) -> int:
+    """Conservative halo (voxels) covering a blur + morphology chain: the
+    blur's 3 sigma plus one structuring-element reach per pass (opening and
+    closing are two passes each), plus one."""
+    halo = int(np.ceil(3 * float(np.max(sigma)))) if np.any(np.asarray(sigma) > 0) else 0
+    passes = sum(2 if op in ("binary_opening", "binary_closing") else 1 for op in operations)
+    return halo + passes * struct_extent + 1

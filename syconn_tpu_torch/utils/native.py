@@ -70,7 +70,10 @@ def get_native() -> Optional[ctypes.CDLL]:
         u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
         lib.detect_seg_boundaries_u32.argtypes = [u32p, i64, i64, i64, u8p]
         lib.detect_cs_u32.argtypes = [u32p, u8p, i64, i64, i64, i32, i32, i32, u64p]
-        lib.detect_seg_boundaries_u32.restype = None
-        lib.detect_cs_u32.restype = None
+        lib.relabel_u32.argtypes = [u32p, i64, u32p, u32p, i64, i32]
+        lib.relabel_u64.argtypes = [u64p, i64, u64p, u64p, i64, i32]
+        for fn in (lib.detect_seg_boundaries_u32, lib.detect_cs_u32, lib.relabel_u32,
+                   lib.relabel_u64):
+            fn.restype = None
         _lib = lib
         return _lib

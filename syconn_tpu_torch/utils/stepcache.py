@@ -3,7 +3,8 @@
 
 A :class:`StepCache` holds one atomically written pickle per work item under
 ``<cache_root>/.stepcache/<step>/``. A rerun loads completed items and
-computes only the missing ones; ``overwrite=True`` clears the cache first.
+computes only the missing ones (:func:`cached_map`); ``overwrite=True``
+clears the cache first.
 Side effects (chunk writes) happen before the item's result is stored, and
 chunk files are written atomically, so a stored item implies durable
 outputs. The cache root is an argument: the port has no working-directory
@@ -12,13 +13,16 @@ configuration yet.
 
 from __future__ import annotations
 
+import logging
 import os
 import pickle
 import shutil
 import threading
-from typing import Any
+from typing import Any, Callable, List, Optional, Sequence
 
-__all__ = ["StepCache"]
+log = logging.getLogger("syconn_tpu_torch.stepcache")
+
+__all__ = ["StepCache", "cached_map"]
 
 
 class StepCache:
@@ -59,3 +63,29 @@ class StepCache:
 
     def is_complete(self) -> bool:
         return os.path.isfile(self._complete_path)
+
+
+def cached_map(fn: Callable, params: Sequence, cache: StepCache,
+               key_fn: Optional[Callable[[Any], str]] = None,
+               n_workers: Optional[int] = None) -> List[Any]:
+    """``map_parallel`` with per-item resume through ``cache``: completed
+    items load their stored result, the rest run ``fn`` and store it before
+    returning."""
+    from ..parallel.executor import map_parallel
+
+    if key_fn is None:
+        key_fn = lambda p: "_".join(str(int(x)) for x in p)  # noqa: E731
+    n_done = sum(1 for p in params if cache.done(key_fn(p)))
+    if n_done:
+        log.info("resume: %d/%d items already complete in %s — skipping them",
+                 n_done, len(params), cache.dir)
+
+    def work(p):
+        k = key_fn(p)
+        if cache.done(k):
+            return cache.load(k)
+        v = fn(p)
+        cache.store(k, v)
+        return v
+
+    return map_parallel(work, params, n_workers=n_workers)

@@ -38,7 +38,7 @@ def test_port_imports_without_jax_flax_msgpack_or_reference():
     import syconn_tpu_torch
 
     n = len(list(pkgutil.walk_packages(syconn_tpu_torch.__path__, "syconn_tpu_torch.")))
-    assert int(out.stdout.strip().splitlines()[-1]) == n >= 28
+    assert int(out.stdout.strip().splitlines()[-1]) == n >= 42
 
 
 def test_entry_points_without_device_raise(monkeypatch, tmp_path):
@@ -107,3 +107,60 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                          env=env, cwd=str(tmp_path), timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_step2_entry_points_without_device_raise(monkeypatch, tmp_path):
+    """Step 2's entry points and device functions: CUDA or ``device="cpu"``."""
+    from syconn_tpu_torch.exec.exec_init import init_cell_subcell_tables, kd_init
+    from syconn_tpu_torch.extraction.object_extraction import (from_probabilities_to_kd,
+                                                               object_segmentation_chunk)
+    from syconn_tpu_torch.inference.dense import ResidentDensePredictor
+    from syconn_tpu_torch.io.chunked import ChunkedVolume
+    from syconn_tpu_torch.models.io import load_model, packaged_model_path
+    from syconn_tpu_torch.ops.cc import connected_components
+    from syconn_tpu_torch.ops.cc_torch import connected_components_torch
+    from syconn_tpu_torch.ops.morphology import get_aniso_struct
+    from syconn_tpu_torch.ops.morphology_torch import (morphology_chain_device,
+                                                       segment_chunk_device)
+    from syconn_tpu_torch.ops.props_torch import object_properties_torch, pair_counts_torch
+    from syconn_tpu_torch.proc.sd_proc import map_subcell_extract_props_tables
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    prob = np.zeros((24, 24, 12), np.uint8)
+    prob[4:12, 4:12, 2:8] = 200
+    seg = (prob > 0).astype(np.uint64) * 3
+    paths = {n: str(tmp_path / n) for n in ("prob", "seg")}
+    ChunkedVolume.create(paths["prob"], scale=(10, 10, 20), boundary=prob.shape).save_raw(prob)
+    ChunkedVolume.create(paths["seg"], scale=(10, 10, 20), boundary=prob.shape).save_seg(seg)
+    struct = get_aniso_struct((10, 10, 20))
+    model, params = load_model(packaged_model_path("organelles"))
+    out = str(tmp_path / "out")
+    calls = [
+        lambda **kw: kd_init("mi", paths["prob"], out, **kw),
+        lambda **kw: init_cell_subcell_tables(paths["seg"], {"mi": paths["prob"],
+                                                             "vc": paths["prob"]},
+                                              {"mi": out + "_mi", "vc": out + "_vc"}, **kw),
+        lambda **kw: from_probabilities_to_kd(paths["prob"], out, 128, [], **kw),
+        lambda **kw: from_probabilities_to_kd(paths["prob"], out, 128, [], use_device=False,
+                                              **kw),
+        lambda **kw: object_segmentation_chunk(prob, 128, [], struct, 1, **kw),
+        lambda **kw: map_subcell_extract_props_tables(paths["seg"], {}, **kw),
+        lambda **kw: morphology_chain_device(prob > 0, ["binary_erosion"], struct, **kw),
+        lambda **kw: segment_chunk_device(prob, 128, [], struct, **kw),
+        lambda **kw: connected_components_torch(prob > 0, **kw),
+        lambda device=None: connected_components(prob > 0, device=device),
+        lambda **kw: object_properties_torch(seg, **kw),
+        lambda **kw: pair_counts_torch(seg, seg, **kw),
+        lambda **kw: ResidentDensePredictor(model, params, tile_shape=(32, 32, 16),
+                                            halo=(0, 0, 0), **kw),
+    ]
+    for call in calls:
+        for kw in ({}, {"device": "cuda"}):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                call(**kw)
+    assert connected_components(prob > 0)[1] == 1  # the host default: scipy
+    res = init_cell_subcell_tables(paths["seg"], {"mi": paths["prob"], "vc": paths["prob"]},
+                                   {"mi": out + "_mi", "vc": out + "_vc"}, chunk_size=(24, 24, 12),
+                                   device="cpu")
+    assert res["counts"]["sv"] == 1 and res["stats"]["cell_route"] == "host"
+    assert res["extraction"]["vc"]["n_objects"] == 1  # mi's four erosions leave no seed

@@ -241,3 +241,122 @@ def test_contact_extraction_card_matches_cpu(dev, tmp_path):
     assert vols["cpu"].any()
     assert np.array_equal(vols["cpu"], vols["stream"])
     assert np.array_equal(vols["cpu"], vols["resident"])
+
+
+# ------------------------------------------------ step 2 on the card (exact)
+def _blob_prob(shape=(70, 45, 37), seed=4):
+    rng = np.random.default_rng(seed)
+    prob = rng.integers(0, 100, shape).astype(np.uint8)
+    for _ in range(12):
+        c = rng.integers(4, np.array(shape) - 4)
+        r = rng.integers(3, 9, 3)
+        prob[tuple(slice(max(0, int(c[i] - r[i])), int(c[i] + r[i])) for i in range(3))] = 220
+    return prob
+
+
+def test_morphology_chain_card_matches_cpu(dev):
+    from syconn_tpu_torch.ops.morphology import get_aniso_struct
+    from syconn_tpu_torch.ops.morphology_torch import (morphology_chain_device,
+                                                       segment_chunk_device)
+
+    struct = get_aniso_struct((10, 10, 20))
+    mask = np.random.default_rng(0).random((64, 56, 40)) < 0.4
+    for ops in (["binary_opening", "binary_closing"] + ["binary_erosion"] * 4,
+                ["binary_dilation"] * 3 + ["binary_erosion"] * 3):
+        assert np.array_equal(morphology_chain_device(mask, ops, struct, device=dev),
+                              morphology_chain_device(mask, ops, struct, device="cpu"))
+    prob = _blob_prob()
+    ops = ["binary_opening", "binary_closing", "binary_erosion"]
+    got = segment_chunk_device(prob, 72.0, ops, struct, device=dev)
+    ref = segment_chunk_device(prob, 72.0, ops, struct, device="cpu")
+    assert got[2] == ref[2] and np.array_equal(got[0], ref[0]) and np.array_equal(got[1], ref[1])
+
+
+def test_connected_components_card_matches_cpu(dev):
+    from syconn_tpu_torch.ops.cc_torch import (connected_components_device,
+                                               connected_components_torch)
+
+    rng = np.random.default_rng(1)
+    for p in (0.05, 0.3, 0.6, 0.9):
+        mask = rng.random((48, 40, 32)) < p
+        got = connected_components_device(torch.from_numpy(mask).to(dev)).cpu()
+        assert torch.equal(got, connected_components_device(torch.from_numpy(mask)))
+        lab, n = connected_components_torch(mask, device=dev)
+        lab_c, n_c = connected_components_torch(mask, device="cpu")
+        assert n == n_c and np.array_equal(lab, lab_c)
+
+
+def test_property_scans_card_match_cpu(dev):
+    from syconn_tpu_torch.ops.props_torch import object_properties_device, pair_counts_device
+
+    rng = np.random.default_rng(2)
+    vol = rng.integers(0, 3000, (64, 48, 40)).astype(np.int32)
+    for max_ids in (1024, 4096):  # overflow folding, then the whole table
+        got = object_properties_device(torch.from_numpy(vol).to(dev), max_ids)
+        ref = object_properties_device(torch.from_numpy(vol), max_ids)
+        for g, r in zip(got, ref):
+            assert torch.equal(g.cpu(), r)
+    a = rng.integers(0, 40, (64, 48, 40)).astype(np.int32)
+    b = rng.integers(0, 40, (64, 48, 40)).astype(np.int32)
+    for max_pairs in (256, 2048):
+        got = pair_counts_device(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev),
+                                 max_pairs)
+        ref = pair_counts_device(torch.from_numpy(a), torch.from_numpy(b), max_pairs)
+        for g, r in zip(got, ref):
+            assert torch.equal(g.cpu(), r)
+
+
+def test_resident_classes_card_match_cpu(dev):
+    from syconn_tpu_torch.ops.morphology import get_aniso_struct, morphology_halo
+    from syconn_tpu_torch.ops.morphology_torch import ResidentSegmenter
+    from syconn_tpu_torch.ops.props_torch import ResidentPropsScanner
+
+    struct = get_aniso_struct((10, 10, 20))
+    prob = _blob_prob()
+    ops = ["binary_opening", "binary_closing"] + ["binary_erosion"] * 4
+    halo = morphology_halo(ops, 0, 2)
+    segs = [ResidentSegmenter(torch.from_numpy(prob).to(d), (32, 32, 16), halo, 109.3, ops,
+                              struct) for d in (dev, "cpu")]
+    for cix in [(0, 0, 0), (2, 1, 2)]:
+        got, ref = (s.fetch(s.dispatch(cix)) for s in segs)
+        assert got[2] == ref[2] == 4
+        assert np.array_equal(got[0], ref[0]) and np.array_equal(got[1], ref[1])
+    vol = np.random.default_rng(3).integers(0, 50, (70, 48, 40)).astype(np.int32)
+    dense = (np.arange(32 ** 3, dtype=np.int32).reshape(32, 32, 32) // 4) + 1
+    vol[:32, :32, :32] = dense  # > 4096 ids: the growth path
+    scans = [ResidentPropsScanner(torch.from_numpy(vol).to(d), chunk=(32, 32, 32))
+             for d in (dev, "cpu")]
+    for cix in [(0, 0, 0), (2, 1, 1)]:
+        for g, r in zip(scans[0].props(cix), scans[1].props(cix)):
+            assert np.array_equal(g, r)
+
+
+def test_resident_dense_card_matches_cpu(dev):
+    """ResidentDensePredictor on the kernels: with the packaged syntype
+    weights against its CPU path, uint8 probabilities within 2 LSB on
+    >= 99.9% of values (as the streaming predictor above); with the packaged
+    organelles weights against the streaming predictor on the card, equal
+    (the same kernels on the same windows, batch 4 against batch 1)."""
+    from syconn_tpu_torch.inference.dense import DenseTilePredictor, ResidentDensePredictor
+    from syconn_tpu_torch.models.io import load_model, packaged_model_path
+
+    vol = np.random.default_rng(5).integers(0, 256, (128, 128, 64), dtype=np.uint8)
+    model, params = load_model(packaged_model_path("syntype"))
+    kw = dict(tile_shape=(64, 64, 32), halo=(8, 8, 4), mode="probs")
+    C.reset_launch_counts()
+    got_p, grid = ResidentDensePredictor(model, params, device=dev, tile_batch=4,
+                                         **kw).predict_volume_packed(torch.from_numpy(vol).to(dev))
+    assert grid == (2, 2, 2)
+    assert C.LAUNCHES["conv3x3x3_ln_gelu"] == 2 * 10 and C.LAUNCHES["conv_down2x_bias"] == 4
+    ref_p, _ = ResidentDensePredictor(model, params, device="cpu", tile_batch=4,
+                                      **kw).predict_volume_packed(vol)
+    d = (got_p.cpu().int() - ref_p.int()).abs()
+    assert float((d <= 2).float().mean()) >= 0.999
+    model, params = load_model(packaged_model_path("organelles"))
+    kw = dict(tile_shape=(32, 32, 32), halo=(8, 8, 8), mode="probs")
+    res = ResidentDensePredictor(model, params, device=dev, tile_batch=4, **kw)
+    packed, grid = res.predict_volume_packed(vol)
+    full = DenseTilePredictor(model, params, device=dev, **kw).predict_array(vol)
+    for c in range(model.n_classes):
+        assert np.array_equal(res.class_volume_device(packed, grid, c, vol.shape).cpu().numpy(),
+                              full[..., c])
