@@ -178,3 +178,51 @@ def test_tile_batch_env_override(monkeypatch):
     assert tdense.ResidentDensePredictor(tm, tp, device="cpu", **KW).tile_batch == 1
     monkeypatch.delenv("SYCONN_TORCH_RESIDENT_TILE_BATCH")
     assert tdense.ResidentDensePredictor(tm, tp, device="cpu", **KW).tile_batch == 4
+
+
+def test_oom_halves_the_batch_then_shrinks_the_tile(tmp_path, clean_store, monkeypatch,
+                                                    caplog):
+    """A device OOM halves tile_batch down to 1, then shrinks the tile and
+    rebuilds; an OOM in the class-map reassembly skips the registration
+    (logged) and the outputs still reach the disk."""
+    import logging
+
+    _, _, tm, tp = _models()
+    vol = _vol(6, (128, 64, 32))  # two tiles of (64, 64, 32)
+    src = str(tmp_path / "src")
+    ChunkedVolume.create(src, scale=(10, 10, 20), boundary=vol.shape,
+                         chunk_shape=(64, 64, 32)).save_raw(vol)
+    assert clean_store.put(src, "raw", vol, device="cpu")
+    real = tdense.DenseTilePredictor._forward
+    seen = []
+
+    def flaky(self, x):
+        seen.append((int(x.shape[0]), tuple(int(t) for t in self.tile_shape)))
+        if len(seen) > 1 and self.tile_shape[0] == 64:  # the first-dispatch probe passes
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory. Tried to allocate 8.00 GiB")
+        return real(self, x)
+
+    def no_room(*a, **k):
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory (reassembly)")
+
+    monkeypatch.setattr(tdense.DenseTilePredictor, "_forward", flaky)
+    monkeypatch.setattr(tdense.ResidentDensePredictor, "class_volume_device", no_room)
+    caplog.set_level(logging.WARNING, logger="syconn_tpu_torch.inference")
+    stats = tdense.predict_dense_to_kd(
+        src, {"mi": str(tmp_path / "mi")}, tm, tp, {"mi": 1}, tile_shape=(64, 64, 32),
+        halo=(8, 8, 8), target_mags=(1,), show_progress=False, device="cpu")
+    # the probe; tile_batch 4 and 2 (both one batch of the two tiles), 1;
+    # then the tile shrinks
+    assert [b for b, ts in seen if ts == (64, 64, 32)] == [1, 2, 2, 1]
+    assert stats["tile_shape"] == [32, 64, 32] and stats["route"] == "resident"
+    assert stats["registered"] == [] and clean_store.get(str(tmp_path / "mi"), "raw") is None
+    assert any("skipping resident registration" in r.message for r in caplog.records)
+    out = ChunkedVolume.open(str(tmp_path / "mi")).load_raw(size=vol.shape)
+    assert out.shape == vol.shape and int(out.max()) > int(out.min())
+    # the batch halving alone, on a volume of 4 tiles
+    monkeypatch.setattr(tdense.DenseTilePredictor, "_forward",
+                        lambda self, x: (_ for _ in ()).throw(torch.cuda.OutOfMemoryError(
+                            "CUDA out of memory")) if x.shape[0] > 1 else real(self, x))
+    r = tdense.ResidentDensePredictor(tm, tp, tile_batch=4, device="cpu", **KW)
+    packed, grid = r.predict_volume_packed(_vol(7, (64, 64, 32)))
+    assert r.tile_batch == 1 and grid == (2, 2, 1) and packed.shape[0] == 4
