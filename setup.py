@@ -11,6 +11,7 @@ setup(
         "syconn_tpu.csrc": ["*.cpp"],
         "syconn_tpu.analysis": ["viewer.html"],
         "syconn_tpu_torch.ops": ["csrc/*.cu", "csrc/*.cpp"],
+        "syconn_tpu_torch.handler": ["default_config.yml"],
         "syconn_tpu.models": ["pretrained/*/arch.json",
                               "pretrained/*/params.msgpack",
                               "pretrained/*/meta.json"],

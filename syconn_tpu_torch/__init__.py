@@ -2,7 +2,7 @@
 
 Mirrors the JAX package's module layout; every Pallas kernel on a ported
 path has a hand-written CUDA counterpart under ``ops/csrc``. The package
-imports torch, numpy and the standard library only.
+imports torch, numpy, scipy and the standard library only.
 """
 
 __version__ = "0.1.0"

@@ -1,11 +1,13 @@
 """Dense prediction orchestration — pipeline step 1 (counterpart of
 ``syconn_tpu/exec/exec_dense_prediction.py``).
 
-Each function loads the task's model (``model_path``, falling back to the
-packaged weights of the same name) and runs the tiled inference over the
-dataset at ``kd_path``, writing probability maps (or 0/255 masks) into the
-chunked volumes named by ``target_paths``. Paths are explicit arguments:
-the YAML working-directory configuration is not ported yet.
+Each function loads the task's model (the config's ``mpath_*``: a model
+saved in the working directory, else the packaged weights of that name) and
+runs the tiled inference over the raw channel of the dataset at
+``kd_seg_path``, writing probability maps (or 0/255 masks) into the chunked
+volumes the config names (``kd_mi_path`` …), as in the JAX package.
+``kd_path``, ``target_paths`` and ``model_path`` override the configured
+paths; the tile defaults to ``tpu.chunk_shape``.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from .. import global_params
 from ..inference.dense import predict_dense_to_kd
 from ..io.chunked import ChunkedVolume
 from ..models.io import load_model, load_model_meta, packaged_model_path
@@ -26,10 +29,10 @@ __all__ = ["predict_myelin", "predict_synapsetype", "predict_cellorganelles",
 
 
 def _tile_params(kd_path: str, mag: int, tile_shape=None, halo=None):
-    """Deployment tile (256, 256, 128) with halo (32, 32, 16), shrunk for
-    small volumes to power-of-two buckets (>= 32) so tile shapes repeat."""
+    """Deployment tile (``tpu.chunk_shape``) with halo (32, 32, 16), shrunk
+    for small volumes to power-of-two buckets (>= 32) so tile shapes repeat."""
     if tile_shape is None:
-        tile_shape = (256, 256, 128)
+        tile_shape = tuple(global_params.config["tpu"]["chunk_shape"])
     if halo is None:
         halo = (32, 32, 16)
     sh = ChunkedVolume.open(kd_path).mag_shape(mag)
@@ -38,6 +41,15 @@ def _tile_params(kd_path: str, mag: int, tile_shape=None, halo=None):
         return int(min(t, 1 << max(5, int(np.floor(np.log2(max(int(s), 32)))))))
 
     return tuple(bucket(t, s) for t, s in zip(tile_shape, sh)), tuple(halo)
+
+
+def _paths(kd_path: Optional[str], target_paths: Optional[Dict[str, str]],
+           configured: Dict[str, str]):
+    cfg = global_params.config
+    if (kd_path is None or target_paths is None) and cfg.working_dir is None:
+        raise ValueError("no working directory: set global_params.wd or pass kd_path and "
+                         "target_paths")
+    return kd_path or cfg.kd_seg_path, target_paths or configured
 
 
 def _run(task: str, kd_path: str, target_paths: Dict[str, str], channel_mapping: Dict[str, int],
@@ -53,13 +65,18 @@ def _run(task: str, kd_path: str, target_paths: Dict[str, str], channel_mapping:
     return stats
 
 
-def predict_myelin(kd_path: str, target_paths: Dict[str, str], model_path: Optional[str] = None,
-                   mag: Optional[int] = None, tile_shape=None, halo=None, **kw):
-    """Myelin map (target ``"myelin"``). ``mag=None`` reads the deployment
+def predict_myelin(mag: Optional[int] = None, tile_shape=None, halo=None,
+                   kd_path: Optional[str] = None, target_paths: Optional[Dict[str, str]] = None,
+                   model_path: Optional[str] = None, **kw):
+    """Myelin map into ``kd_myelin_path``. ``mag=None`` reads the deployment
     mag from the model meta (fallback 4). With a calibrated ``threshold`` in
     the meta the binary head is thresholded on the card (``p >= thr/255``)
     and read back as bit-packed masks, stored as 0/255."""
-    mpath = model_path or packaged_model_path("myelin")
+    cfg = global_params.config
+    kd_path, target_paths = _paths(kd_path, target_paths,
+                                   None if cfg.working_dir is None
+                                   else {"myelin": cfg.kd_myelin_path})
+    mpath = model_path or cfg.mpath_myelin
     meta = load_model_meta(mpath)
     if mag is None:
         mag = int(meta.get("mag", 4))
@@ -74,30 +91,47 @@ def predict_myelin(kd_path: str, target_paths: Dict[str, str], model_path: Optio
                 thresholds=thresholds, **kw)
 
 
-def predict_synapsetype(kd_path: str, target_paths: Dict[str, str],
-                        model_path: Optional[str] = None, mag: int = 1, tile_shape=None,
-                        halo=None, **kw):
-    """Synapse-type maps (targets ``"asym"``, ``"sym"``)."""
-    return _run("syntype", kd_path, target_paths, {"asym": 1, "sym": 2}, model_path, mag,
-                tile_shape, halo, (1, 2), **kw)
+def predict_synapsetype(mag: int = 1, tile_shape=None, halo=None, kd_path: Optional[str] = None,
+                        target_paths: Optional[Dict[str, str]] = None,
+                        model_path: Optional[str] = None, **kw):
+    """Synapse-type maps into ``kd_asym_path`` and ``kd_sym_path``."""
+    cfg = global_params.config
+    kd_path, target_paths = _paths(kd_path, target_paths, None if cfg.working_dir is None else
+                                   {"asym": cfg.kd_asym_path, "sym": cfg.kd_sym_path})
+    return _run("syntype", kd_path, target_paths, {"asym": 1, "sym": 2},
+                model_path or cfg.mpath_syntype, mag, tile_shape, halo, (1, 2), **kw)
 
 
-def predict_cellorganelles(kd_path: str, target_paths: Dict[str, str],
-                           model_path: Optional[str] = None, mag: int = 1, tile_shape=None,
-                           halo=None, **kw):
-    """Organelle maps (targets ``"mi"``, ``"vc"``, ``"sj"``)."""
-    return _run("organelles", kd_path, target_paths, {"mi": 1, "vc": 2, "sj": 3}, model_path,
-                mag, tile_shape, halo, (1, 2), **kw)
+def predict_cellorganelles(mag: int = 1, tile_shape=None, halo=None,
+                           kd_path: Optional[str] = None,
+                           target_paths: Optional[Dict[str, str]] = None,
+                           model_path: Optional[str] = None, **kw):
+    """Organelle maps into ``kd_mi_path``, ``kd_vc_path`` and ``kd_sj_path``."""
+    cfg = global_params.config
+    kd_path, target_paths = _paths(kd_path, target_paths, None if cfg.working_dir is None else
+                                   {"mi": cfg.kd_mi_path, "vc": cfg.kd_vc_path,
+                                    "sj": cfg.kd_sj_path})
+    return _run("organelles", kd_path, target_paths, {"mi": 1, "vc": 2, "sj": 3},
+                model_path or cfg.mpath_organelles, mag, tile_shape, halo, (1, 2), **kw)
 
 
-def predict_er(kd_path: str, target_paths: Dict[str, str], model_path: Optional[str] = None,
-               mag: int = 1, **kw):
-    """ER map (target ``"er"``); probs mode, as the JAX package deploys it."""
-    return _run("er", kd_path, target_paths, {"er": 1}, model_path, mag, None, None, (1, 2), **kw)
+def predict_er(mag: int = 1, kd_path: Optional[str] = None,
+               target_paths: Optional[Dict[str, str]] = None,
+               model_path: Optional[str] = None, **kw):
+    """ER map into ``kd_er_path``; probs mode, as the JAX package deploys it."""
+    cfg = global_params.config
+    kd_path, target_paths = _paths(kd_path, target_paths, None if cfg.working_dir is None
+                                   else {"er": cfg.kd_er_path})
+    return _run("er", kd_path, target_paths, {"er": 1}, model_path or cfg.mpath_er, mag,
+                None, None, (1, 2), **kw)
 
 
-def predict_golgi(kd_path: str, target_paths: Dict[str, str], model_path: Optional[str] = None,
-                  mag: int = 1, **kw):
-    """Golgi map (target ``"golgi"``); probs mode, as the JAX package deploys it."""
-    return _run("golgi", kd_path, target_paths, {"golgi": 1}, model_path, mag, None, None,
-                (1, 2), **kw)
+def predict_golgi(mag: int = 1, kd_path: Optional[str] = None,
+                  target_paths: Optional[Dict[str, str]] = None,
+                  model_path: Optional[str] = None, **kw):
+    """Golgi map into ``kd_golgi_path``; probs mode, as the JAX package deploys it."""
+    cfg = global_params.config
+    kd_path, target_paths = _paths(kd_path, target_paths, None if cfg.working_dir is None
+                                   else {"golgi": cfg.kd_golgi_path})
+    return _run("golgi", kd_path, target_paths, {"golgi": 1}, model_path or cfg.mpath_golgi,
+                mag, None, None, (1, 2), **kw)

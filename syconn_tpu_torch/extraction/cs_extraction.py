@@ -8,11 +8,12 @@ background only, intersected with the synapse-junction foreground to get
 'syn' fragments, and symmetric/asymmetric type counts are accumulated. The
 reduce phase merges the per-chunk properties into per-object tables.
 
-Where the JAX package takes its paths and thresholds from the working
-directory's configuration and writes 'cs' and 'syn' ``SegmentationDataset``s,
-this port takes explicit arguments and returns the merged tables (the
-dataset layer is not ported yet); the two label volumes are written as
-chunked volumes under ``out_dir``.
+:func:`extract_contact_sites` takes its paths and settings from the working
+directory's configuration, as in the JAX package, and writes the 'cs' and
+'syn' ``SegmentationDataset``s (:func:`_write_partner_sd`) and the label
+volumes ``knossosdatasets/{cs_seg,syn_seg}``. Its detection and reduce step
+is :func:`extract_contact_site_tables`, which takes explicit arguments and
+returns the merged tables.
 """
 
 from __future__ import annotations
@@ -26,17 +27,21 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from .. import global_params
+from ..backend import AttributeDict, VoxelStorageLazyLoading
 from ..io import resident
 from ..io.chunked import ChunkedVolume
 from ..ops.contacts import cs_pair_unpack, detect_cs, extract_cs_syntype
 from ..ops.morphology import get_aniso_struct, multi_mop_backgroundonly
 from ..parallel.executor import map_parallel
+from ..reps.rep_helper import subfold_from_ix
+from ..reps.segmentation import SegmentationDataset
 from ..utils.device import default_device
 from ..utils.stepcache import StepCache
 
 log = logging.getLogger("syconn_tpu_torch.cs_extraction")
 
-__all__ = ["extract_contact_sites"]
+__all__ = ["extract_contact_sites", "extract_contact_site_tables"]
 
 
 def _cdiv(a, b):
@@ -44,6 +49,114 @@ def _cdiv(a, b):
 
 
 def extract_contact_sites(
+    chunk_shape: Optional[Sequence[int]] = None,
+    n_workers: Optional[int] = None,
+    mag: int = 1,
+    n_folders_fs: int = 100,
+    mesh=None,
+    overwrite: bool = True,
+    kernel: str = "auto",
+    device=None,
+) -> Dict:
+    """Extract the 'cs' and 'syn' SegmentationDatasets and label volumes of
+    the working directory of ``global_params.config``: the segmentation
+    ``kd_seg_path``, the synapse-junction map ``kd_sj_path`` and, where
+    ``syntype_avail``, the type maps ``kd_sym_path``/``kd_asym_path`` (each
+    used only where it exists), with ``cs_filtersize``, ``cs_dilation``, the
+    sj probability threshold and ``min_obj_vx`` of ``cell_objects``; chunk
+    ``tpu.chunk_shape`` by default. The resume cache lives under
+    ``<wd>/.stepcache``. ``mesh`` (a multi-device slab path in the JAX
+    package) is not ported. ``kernel``/``device``: see
+    :func:`extract_contact_site_tables`.
+
+    Returns ``{"n_cs", "n_syn"}``, the objects written, and ``"stats"``: the
+    detection's statistics with ``write_seconds``.
+    """
+    if mesh is not None:
+        raise NotImplementedError("the sharded slab path needs multi-device support, which is "
+                                  "not ported yet (ROADMAP Queue 1, multi-device)")
+    cfg = global_params.config
+    if cfg.working_dir is None:
+        raise ValueError("no working directory: set global_params.wd first")
+    co = cfg["cell_objects"]
+    out_dir = os.path.join(str(cfg.working_dir), "knossosdatasets")
+    sym = asym = None
+    if bool(cfg["syntype_avail"]) and os.path.isdir(cfg.kd_sym_path) \
+            and os.path.isdir(cfg.kd_asym_path):
+        sym, asym = cfg.kd_sym_path, cfg.kd_asym_path
+    res = extract_contact_site_tables(
+        cfg.kd_seg_path, out_dir,
+        kd_sj_path=cfg.kd_sj_path if os.path.isdir(cfg.kd_sj_path) else None,
+        kd_sym_path=sym, kd_asym_path=asym,
+        chunk_shape=cfg["tpu"]["chunk_shape"] if chunk_shape is None else chunk_shape,
+        stencil=co["cs_filtersize"], cs_dilation=int(co["cs_dilation"]),
+        sj_thresh=float(co["probathresholds"]["sj"]),
+        min_obj_vx={"cs": int(co["min_obj_vx"].get("cs", 1)),
+                    "syn": int(co["min_obj_vx"].get("syn", 1))},
+        mag=mag, n_workers=n_workers, overwrite=overwrite, kernel=kernel, device=device,
+        cache_root=str(cfg.working_dir))
+    t0 = time.perf_counter()
+    _write_partner_sd("cs", res["cs"], n_folders_fs, os.path.join(out_dir, "cs_seg"), n_workers)
+    _write_partner_sd("syn", res["syn"], n_folders_fs, os.path.join(out_dir, "syn_seg"),
+                      n_workers)
+    log.info("extract_contact_sites: %d cs, %d syn fragments", res["n_cs"], res["n_syn"])
+    return {"n_cs": res["n_cs"], "n_syn": res["n_syn"],
+            "stats": dict(res["stats"], write_seconds=time.perf_counter() - t0)}
+
+
+def _write_partner_sd(obj_type: str, table: Dict, n_folders_fs: int, voxeldata_path: str,
+                      n_workers):
+    """Write one table of :func:`extract_contact_site_tables` as the
+    ``obj_type`` dataset: per-shard attribute dicts (id, size, rep_coord,
+    bounding_box, partner_ids; syn also asym_prop, sym_prop, cs_id) and, for
+    syn, the voxel coordinates (``voxel_lazy.npz``); then the numpy caches."""
+    cfg = global_params.config
+    sd = SegmentationDataset(obj_type, working_dir=cfg.working_dir, n_folders_fs=n_folders_fs,
+                             create=True)
+    ids = table["ids"]
+    row = {int(oid): k for k, oid in enumerate(ids)}
+    by_shard = defaultdict(list)
+    for oid in ids:
+        by_shard[subfold_from_ix(int(oid), n_folders_fs)].append(int(oid))
+
+    def write_shard(item):
+        shard, oids = item
+        shard_dir = os.path.join(sd.so_storage_path, shard.strip("/"))
+        os.makedirs(shard_dir, exist_ok=True)
+        ad = AttributeDict(os.path.join(shard_dir, "attr_dict.pkl"), read_only=False,
+                           disable_locking=True)
+        vl = (VoxelStorageLazyLoading(os.path.join(shard_dir, "voxel_lazy.npz"))
+              if obj_type == "syn" else None)
+        for oid in oids:
+            k = row[oid]
+            attrs = {
+                "id": oid,
+                "size": int(table["sizes"][k]),
+                "rep_coord": np.asarray(table["rep_coords"][k], np.int64),
+                "bounding_box": np.asarray(table["bounding_boxes"][k], np.int64),
+                "partner_ids": np.asarray(table["partner_ids"][k], np.uint64),
+            }
+            if obj_type == "syn":
+                attrs["asym_prop"] = float(table["asym_prop"][k])
+                attrs["sym_prop"] = float(table["sym_prop"][k])
+                attrs["cs_id"] = oid
+                vl[oid] = table["voxels"][k]
+            ad[oid] = attrs
+        ad.push()
+        if vl is not None:
+            vl.push()
+
+    map_parallel(write_shard, list(by_shard.items()), n_workers=n_workers)
+    sd.save_numpy_data("id", ids)
+    sd.save_numpy_data("size", table["sizes"])
+    sd.save_numpy_data("rep_coord", table["rep_coords"])
+    sd.save_numpy_data("bounding_box", table["bounding_boxes"])
+    if obj_type == "syn":
+        sd.save_numpy_data("asym_prop", table["asym_prop"])
+        sd.save_numpy_data("sym_prop", table["sym_prop"])
+
+
+def extract_contact_site_tables(
     kd_seg_path: str,
     out_dir: str,
     kd_sj_path: Optional[str] = None,
@@ -60,6 +173,7 @@ def extract_contact_sites(
     overwrite: bool = True,
     kernel: str = "auto",
     device=None,
+    cache_root: Optional[str] = None,
 ) -> Dict:
     """Extract contact sites and synapse fragments of a segmentation.
 
@@ -83,6 +197,7 @@ def extract_contact_sites(
             runs the exact host kernel on every chunk.
         device: ``None`` means the CUDA card (required); ``"cpu"`` runs the
             plain versions.
+        cache_root: holds the resume cache (default ``out_dir``).
 
     Three detection paths: a segmentation held by ``io.resident`` is sliced
     in device memory and read back sparsely; else chunks stream through the
@@ -107,7 +222,7 @@ def extract_contact_sites(
     if (kd_sym_path is None) != (kd_asym_path is None):
         raise ValueError("give both kd_sym_path and kd_asym_path, or neither")
     t_start = time.perf_counter()
-    cache = StepCache("cs_extract", out_dir, overwrite=overwrite)
+    cache = StepCache("cs_extract", cache_root or out_dir, overwrite=overwrite)
     kd = ChunkedVolume.open(kd_seg_path)
     sh = kd.mag_shape(mag)
     cs = np.minimum(np.asarray(chunk_shape, np.int64), sh)
@@ -330,7 +445,7 @@ def extract_contact_sites(
     cache.mark_complete()
     stats["seconds"] = time.perf_counter() - t_start
     n_cs, n_syn = len(cs_table["ids"]), len(syn_table["ids"])
-    log.info("extract_contact_sites: %d cs, %d syn fragments", n_cs, n_syn)
+    log.info("contact-site tables: %d cs, %d syn fragments", n_cs, n_syn)
     return {"n_cs": n_cs, "n_syn": n_syn, "cs": cs_table, "syn": syn_table, "stats": stats}
 
 

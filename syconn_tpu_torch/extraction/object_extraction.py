@@ -20,9 +20,9 @@ or through scipy on the host (``use_device=False``). Connected components
 run on the device with the device chain and in scipy on the host route;
 the watershed runs on the host. All routes give the same segmentation.
 
-Where the JAX package takes paths and thresholds from the working
-directory's configuration (``generate_subcell_kd_from_proba``), this port
-takes explicit arguments (see ``exec.exec_init.kd_init``).
+:func:`generate_subcell_kd_from_proba` takes the paths, threshold,
+morphology chain and seed size of one organelle type from the working
+directory's configuration, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import global_params
 from ..io import resident
 from ..io.chunked import ChunkedVolume
 from ..ops.cc import (connected_components, encode_chunk_labels, face_merge_pairs,
@@ -48,7 +49,8 @@ from ..utils.stepcache import StepCache, cached_map
 
 log = logging.getLogger("syconn_tpu_torch.extraction")
 
-__all__ = ["from_probabilities_to_kd", "object_segmentation_chunk", "labels_from_masks"]
+__all__ = ["from_probabilities_to_kd", "generate_subcell_kd_from_proba",
+           "object_segmentation_chunk", "labels_from_masks"]
 
 
 def _cdiv(a, b):
@@ -264,3 +266,40 @@ def from_probabilities_to_kd(
             "resumed": n_resumed, "seconds": t_end - t_start,
             "segment_seconds": t_stitch - t_seg, "stitch_seconds": t_relabel - t_stitch,
             "relabel_seconds": t_end - t_relabel, **stage}
+
+
+def generate_subcell_kd_from_proba(
+    co: str,
+    chunk_size: Optional[Sequence[int]] = None,
+    n_workers: Optional[int] = None,
+    proba_path: Optional[str] = None,
+    target_path: Optional[str] = None,
+    **kw,
+) -> Dict:
+    """Instance segmentation of organelle type ``co`` with the settings of
+    ``global_params.config``: probability map ``kd_organelle_proba_paths``,
+    target ``kd_organelle_seg_paths``, threshold ``probathresholds`` x 255,
+    the ``extract_morph_op`` chain, ``min_seed_vx`` and chunk
+    ``tpu.chunk_shape``. ``proba_path``/``target_path`` override the
+    configured paths; without them the step cache lives under
+    ``<wd>/.stepcache`` (with them, see :func:`from_probabilities_to_kd`).
+    Further keywords (``device``, ``use_device``, ``overwrite``,
+    ``cache_root`` …) go to :func:`from_probabilities_to_kd`, whose
+    statistics are returned."""
+    cfg = global_params.config
+    if chunk_size is None:
+        chunk_size = cfg["tpu"]["chunk_shape"]
+    if proba_path is None or target_path is None:
+        if cfg.working_dir is None:
+            raise ValueError("no working directory: set global_params.wd or pass "
+                             "proba_path and target_path")
+        kw.setdefault("cache_root", cfg.working_dir)
+    proba_path = proba_path or cfg.kd_organelle_proba_paths[co]
+    target_path = target_path or cfg.kd_organelle_seg_paths[co]
+    cell_objects = cfg["cell_objects"]
+    return from_probabilities_to_kd(
+        proba_path, target_path,
+        thresh_uint8=float(cell_objects["probathresholds"][co]) * 255.0,
+        morph_ops=cell_objects["extract_morph_op"].get(co, []),
+        min_seed_vx=int(cell_objects["min_seed_vx"].get(co, 1)),
+        chunk_shape=chunk_size, n_workers=n_workers, **kw)

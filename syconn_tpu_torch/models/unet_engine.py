@@ -21,11 +21,16 @@ defaults:
 Shape rule: odd extents or strides other than 2 cannot take the phase
 kernels; they run the SAME kernel on the stuffed grid / with a strided
 slice, which computes the same SAME conv exactly.
+
+Per-layer comparison (one device against another): ``trace`` collects
+``(name, input, output)`` of every conv layer; ``feed`` maps a layer name to
+the input that layer takes instead of its predecessor's output, so that
+one layer can be run on another device's input alone.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,10 +47,25 @@ def engine_supported(model) -> bool:
     return isinstance(model, UNet3D)
 
 
-def _block(p, h):
+class _Steps:
+    """Runs the named layers, applying ``feed`` and recording ``trace``."""
+
+    def __init__(self, trace: Optional[List], feed: Optional[Dict[str, torch.Tensor]]):
+        self.trace, self.feed = trace, feed or {}
+
+    def __call__(self, name: str, fn, h: torch.Tensor) -> torch.Tensor:
+        h = self.feed.get(name, h)
+        out = fn(h)
+        if self.trace is not None:
+            self.trace.append((name, h, out))
+        return out
+
+
+def _block(p, h, step, name):
     for i in range(2):
-        h = conv3x3x3_ln_gelu(h, p[f"Conv_{i}"]["kernel"], p[f"Conv_{i}"]["bias"],
-                              p[f"LayerNorm_{i}"]["scale"], p[f"LayerNorm_{i}"]["bias"])
+        q = (p[f"Conv_{i}"], p[f"LayerNorm_{i}"])
+        h = step(f"{name}_conv{i}", lambda t, q=q: conv3x3x3_ln_gelu(
+            t, q[0]["kernel"], q[0]["bias"], q[1]["scale"], q[1]["bias"]), h)
     return h
 
 
@@ -73,35 +93,43 @@ def _up(p, h, stride, up_phases: bool):
 
 def unet_apply_packed(model: UNet3D, params: dict, x: torch.Tensor,
                       up_phases: bool = True, down_phases: bool = True,
-                      fused_head: bool = True) -> torch.Tensor:
+                      fused_head: bool = True, trace: Optional[List] = None,
+                      feed: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
     """= ``model(x, full_res=False)`` on the conv kernels.
 
     x: (B, X, Y, Z, 1) raw voxels (uint8 value range) on the params' device.
-    Returns packed f32 logits (B, X/px, Y/py, Z/pz, n_classes * pvox)."""
+    Returns packed f32 logits (B, X/px, Y/py, Z/pz, n_classes * pvox).
+    ``trace``/``feed``: see the module docstring; layer names are
+    ``enc<i>_conv<j>``, ``down<i>``, ``up<k>``, ``dec<k>_conv<j>`` and
+    ``head`` (the last conv with the fused head, or the separate head)."""
+    step = _Steps(trace, feed)
     feats: Tuple[int, ...] = tuple(model.features)
     depth = len(feats)
     h = (x.float() / 127.5 - 1.0).to(torch.bfloat16)
     h = space_to_depth(h, tuple(model.patch)).contiguous()
     skips = []
     for i in range(depth):
-        h = _block(params[f"ConvBlock_{i}"], h)
+        h = _block(params[f"ConvBlock_{i}"], h, step, f"enc{i}")
         if i < depth - 1:
             skips.append(h)
-            h = _down(params[f"Conv_{i}"], h, model.strides[i], down_phases)
+            h = step(f"down{i}", lambda t, i=i: _down(params[f"Conv_{i}"], t, model.strides[i],
+                                                      down_phases), h)
     hp = params["head"]
     for k, i in enumerate(reversed(range(depth - 1))):
-        h = _up(params[f"ConvTranspose_{k}"], h, model.strides[i], up_phases)
+        h = step(f"up{k}", lambda t, k=k, i=i: _up(params[f"ConvTranspose_{k}"], t,
+                                                   model.strides[i], up_phases), h)
         h = torch.cat([h, skips[i]], dim=-1)
         p = params[f"ConvBlock_{depth + k}"]
         if i == 0 and fused_head:
             # last decoder block: the head runs in the second conv's epilogue
-            h = conv3x3x3_ln_gelu(h, p["Conv_0"]["kernel"], p["Conv_0"]["bias"],
-                                  p["LayerNorm_0"]["scale"], p["LayerNorm_0"]["bias"])
-            return conv3x3x3_ln_gelu(h, p["Conv_1"]["kernel"], p["Conv_1"]["bias"],
-                                     p["LayerNorm_1"]["scale"], p["LayerNorm_1"]["bias"],
-                                     head_w=hp["kernel"], head_b=hp["bias"])
-        h = _block(p, h)
-    return h.float() @ hp["kernel"] + hp["bias"]
+            h = step(f"dec{k}_conv0", lambda t: conv3x3x3_ln_gelu(
+                t, p["Conv_0"]["kernel"], p["Conv_0"]["bias"], p["LayerNorm_0"]["scale"],
+                p["LayerNorm_0"]["bias"]), h)
+            return step("head", lambda t: conv3x3x3_ln_gelu(
+                t, p["Conv_1"]["kernel"], p["Conv_1"]["bias"], p["LayerNorm_1"]["scale"],
+                p["LayerNorm_1"]["bias"], head_w=hp["kernel"], head_b=hp["bias"]), h)
+        h = _block(p, h, step, f"dec{k}")
+    return step("head", lambda t: t.float() @ hp["kernel"] + hp["bias"], h)
 
 
 def unet_apply_full(model: UNet3D, params: dict, x: torch.Tensor, **kw) -> torch.Tensor:

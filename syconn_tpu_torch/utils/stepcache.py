@@ -7,8 +7,8 @@ computes only the missing ones (:func:`cached_map`); ``overwrite=True``
 clears the cache first.
 Side effects (chunk writes) happen before the item's result is stored, and
 chunk files are written atomically, so a stored item implies durable
-outputs. The cache root is an argument: the port has no working-directory
-configuration yet.
+outputs. The cache root is an argument: the working directory for the
+config-driven entry points, a target's parent for the explicit-path ones.
 """
 
 from __future__ import annotations

@@ -8,7 +8,11 @@ import os
 import numpy as np
 import pytest
 
+from _torch_helpers import compare_datasets, jax_defaults_isolated, port_wd
+
 SH = (96, 64, 48)
+CONF = [("syntype_avail", True), ("cell_objects", {"min_obj_vx": {"cs": 1, "syn": 1}}),
+        ("tpu", {"shard_pipeline": False})]
 CHUNK = (32, 64, 48)
 
 
@@ -35,12 +39,9 @@ def jax_run(tmp_path_factory):
     wd = str(tmp_path_factory.mktemp("jax_wd"))
     seg, maps = _world()
     clear_kd_cache()
-    generate_default_conf(
-        wd, scaling=(10, 10, 20),
-        key_value_pairs=[("syntype_avail", True),
-                         ("cell_objects", {"min_obj_vx": {"cs": 1, "syn": 1}}),
-                         ("tpu", {"shard_pipeline": False})],
-        force_overwrite=True)
+    with jax_defaults_isolated():
+        generate_default_conf(wd, scaling=(10, 10, 20), key_value_pairs=CONF,
+                              force_overwrite=True)
     prev = global_params.wd
     global_params.wd = wd
     try:
@@ -51,7 +52,7 @@ def jax_run(tmp_path_factory):
             ChunkedVolume.create(getattr(cfg, f"kd_{name}_path"), scale=(10, 10, 20),
                                  boundary=SH, chunk_shape=(64, 64, 64)).save_raw(data)
         counts = extract_contact_sites(chunk_shape=CHUNK)
-        out = {"counts": counts}
+        out = {"counts": counts, "wd": wd}
         for name in ("cs", "syn"):
             out[f"{name}_seg"] = ChunkedVolume.open(
                 f"{cfg.working_dir}/knossosdatasets/{name}_seg").load_seg(size=SH)
@@ -163,7 +164,7 @@ def test_resume_with_overwrite_false(tmp_path, jax_run):
 
 def test_wide_ids_take_the_host_route_or_raise(tmp_path):
     """Chunks with ids >= 2**31 go through the host kernel; >= 2**32 raises."""
-    from syconn_tpu_torch.extraction.cs_extraction import extract_contact_sites
+    from syconn_tpu_torch.extraction.cs_extraction import extract_contact_site_tables
     from syconn_tpu_torch.io.chunked import ChunkedVolume
     from syconn_tpu_torch.ops.contacts import cs_pair_unpack
 
@@ -171,8 +172,8 @@ def test_wide_ids_take_the_host_route_or_raise(tmp_path):
     seg[seg == 9] = 2**31 + 5
     p = str(tmp_path / "seg")
     ChunkedVolume.create(p, scale=(10, 10, 20), boundary=SH, chunk_shape=(64, 64, 64)).save_seg(seg)
-    res = extract_contact_sites(p, str(tmp_path / "out"), chunk_shape=CHUNK,
-                                min_obj_vx={"cs": 1}, device="cpu")
+    res = extract_contact_site_tables(p, str(tmp_path / "out"), chunk_shape=CHUNK,
+                                      min_obj_vx={"cs": 1}, device="cpu")
     assert res["stats"]["host_chunks"] == 2 and res["stats"]["dispatched"] == 1
     lo, hi = cs_pair_unpack(res["cs"]["ids"])
     assert lo.tolist() == [7] and hi.tolist() == [2**31 + 5] and res["n_syn"] == 0
@@ -180,4 +181,47 @@ def test_wide_ids_take_the_host_route_or_raise(tmp_path):
     p2 = str(tmp_path / "seg2")
     ChunkedVolume.create(p2, scale=(10, 10, 20), boundary=SH, chunk_shape=(64, 64, 64)).save_seg(seg)
     with pytest.raises(ValueError, match="32-bit"):
-        extract_contact_sites(p2, str(tmp_path / "out2"), chunk_shape=CHUNK, device="cpu")
+        extract_contact_site_tables(p2, str(tmp_path / "out2"), chunk_shape=CHUNK, device="cpu")
+
+
+@pytest.mark.parametrize("seg_resident", [False, True])
+def test_config_driven_datasets_equal_jax(tmp_path, jax_run, seg_resident):
+    """``run_syn_generation`` up to ``extract_contact_sites`` in a port
+    working directory with the JAX run's configuration: the 'cs' and 'syn'
+    datasets (numpy caches, per-shard attribute dicts, syn voxel lists) and
+    label volumes equal the JAX package's, streaming and resident."""
+    from syconn_tpu_torch.exec.exec_syns import run_syn_generation
+    from syconn_tpu_torch.handler.config import generate_default_conf
+    from syconn_tpu_torch.io import resident
+    from syconn_tpu_torch.io.chunked import ChunkedVolume
+    from syconn_tpu_torch.reps.segmentation import SegmentationDataset
+
+    wd = str(tmp_path / "wd")
+    generate_default_conf(wd, scaling=(10, 10, 20), key_value_pairs=CONF)
+    seg, maps = _world()
+    resident.clear()
+    try:
+        with port_wd(wd) as cfg:
+            ChunkedVolume.create(cfg.kd_seg_path, scale=(10, 10, 20), boundary=SH,
+                                 chunk_shape=(64, 64, 64)).save_seg(seg)
+            for name, data in maps.items():
+                ChunkedVolume.create(getattr(cfg, f"kd_{name}_path"), scale=(10, 10, 20),
+                                     boundary=SH, chunk_shape=(64, 64, 64)).save_raw(data)
+            if seg_resident:
+                assert resident.put(cfg.kd_seg_path, "seg", seg, device="cpu")
+            with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
+                run_syn_generation(chunk_size=CHUNK, device="cpu")
+            res = run_syn_generation(chunk_size=CHUNK, until="extract_contact_sites",
+                                     device="cpu")
+            sd = SegmentationDataset("syn")
+            so = sd.get_segmentation_object(int(sd.ids[0]))
+            assert so.lookup_in_attribute_dict("cs_id") == int(sd.ids[0])
+    finally:
+        resident.clear()
+    assert {k: res[k] for k in ("n_cs", "n_syn")} == jax_run["counts"]
+    assert res["stats"]["path"] == ("resident" if seg_resident else "stream")
+    compare_datasets(jax_run["wd"], wd, ["cs", "syn"])
+    for name in ("cs", "syn"):
+        got = ChunkedVolume.open(os.path.join(wd, "knossosdatasets", f"{name}_seg"))
+        assert np.array_equal(got.load_seg(size=SH), jax_run[f"{name}_seg"])
+    assert os.path.isfile(os.path.join(wd, ".stepcache", "cs_extract", "__complete__"))

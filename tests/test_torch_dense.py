@@ -65,7 +65,7 @@ def test_masks_mode_myelin_matches_jax(tmp_path):
     jdense.predict_dense_to_kd(jsrc, {"myelin": str(tmp_path / "j_my")}, jm, jp, {"myelin": 1},
                                predictor=jpred, target_mags=(1,), mode="masks",
                                thresholds=thresholds, show_progress=False, **TILE)
-    stats = predict_myelin(tsrc, {"myelin": str(tmp_path / "t_my")}, device="cpu",
+    stats = predict_myelin(kd_path=tsrc, target_paths={"myelin": str(tmp_path / "t_my")}, device="cpu",
                            show_progress=False, **TILE)
     assert stats["tile_shape"] == list(TILE["tile_shape"])
     ref = JVolume.open(str(tmp_path / "j_my")).load_raw(size=SHAPE)

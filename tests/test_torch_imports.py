@@ -1,5 +1,5 @@
-"""The port imports nothing of JAX, flax, msgpack or the JAX package, and its
-entry points refuse to run silently on the CPU."""
+"""The port imports nothing of JAX, flax, msgpack, PyYAML, networkx or the JAX
+package, and its entry points refuse to run silently on the CPU."""
 
 import os
 import pkgutil
@@ -15,7 +15,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
 for name in ("jax", "jaxlib", "flax", "msgpack", "syconn_tpu", "zstandard", "yaml", "h5py",
-             "tqdm"):
+             "tqdm", "networkx"):
     sys.modules[name] = None
 sys.path.insert(0, {root!r})
 import syconn_tpu_torch
@@ -24,7 +24,7 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 bad = [m for m in sys.modules
-       if m.split(".")[0] in ("jax", "flax", "msgpack", "syconn_tpu", "h5py", "tqdm")
+       if m.split(".")[0] in ("jax", "flax", "msgpack", "syconn_tpu", "h5py", "tqdm", "networkx")
        and sys.modules[m] is not None]
 assert not bad, bad
 print(len(names))
@@ -38,7 +38,7 @@ def test_port_imports_without_jax_flax_msgpack_or_reference():
     import syconn_tpu_torch
 
     n = len(list(pkgutil.walk_packages(syconn_tpu_torch.__path__, "syconn_tpu_torch.")))
-    assert int(out.stdout.strip().splitlines()[-1]) == n >= 42
+    assert int(out.stdout.strip().splitlines()[-1]) == n >= 59
 
 
 def test_entry_points_without_device_raise(monkeypatch, tmp_path):
@@ -61,13 +61,14 @@ def test_entry_points_without_device_raise(monkeypatch, tmp_path):
     ChunkedVolume.create(kd, scale=(10, 10, 20), boundary=(32, 32, 16)).save_raw(
         np.zeros((32, 32, 16), np.uint8))
     with pytest.raises(RuntimeError, match="CUDA"):
-        predict_synapsetype(kd, {"asym": str(tmp_path / "a"), "sym": str(tmp_path / "s")})
+        predict_synapsetype(kd_path=kd, target_paths={"asym": str(tmp_path / "a"),
+                                                   "sym": str(tmp_path / "s")})
 
 
 def test_contact_entry_points_without_device_raise(monkeypatch, tmp_path):
     """Step 6a's entry points: CUDA or an explicit ``device="cpu"``."""
     from syconn_tpu_torch.exec.exec_syns import run_contact_extraction
-    from syconn_tpu_torch.extraction.cs_extraction import extract_contact_sites
+    from syconn_tpu_torch.extraction.cs_extraction import extract_contact_site_tables
     from syconn_tpu_torch.io.chunked import ChunkedVolume
     from syconn_tpu_torch.ops.contacts_cuda import detect_cs_cuda
     from syconn_tpu_torch.ops.contacts_torch import CsDispatcher, detect_cs_torch
@@ -79,7 +80,7 @@ def test_contact_entry_points_without_device_raise(monkeypatch, tmp_path):
     kd = str(tmp_path / "seg")
     ChunkedVolume.create(kd, scale=(10, 10, 20), boundary=seg.shape).save_seg(seg)
     calls = [lambda **kw: run_contact_extraction(kd, str(tmp_path / "o1"), **kw),
-             lambda **kw: extract_contact_sites(kd, str(tmp_path / "o2"), **kw),
+             lambda **kw: extract_contact_site_tables(kd, str(tmp_path / "o2"), **kw),
              lambda **kw: detect_cs_cuda(seg, (5, 5, 3), (16, 16), 8, **kw),
              lambda **kw: detect_cs_torch(seg, (5, 5, 3), (16, 16, 8), 8, **kw),
              lambda **kw: CsDispatcher((5, 5, 3), **kw)]
@@ -136,7 +137,7 @@ def test_step2_entry_points_without_device_raise(monkeypatch, tmp_path):
     model, params = load_model(packaged_model_path("organelles"))
     out = str(tmp_path / "out")
     calls = [
-        lambda **kw: kd_init("mi", paths["prob"], out, **kw),
+        lambda **kw: kd_init("mi", proba_path=paths["prob"], target_path=out, **kw),
         lambda **kw: init_cell_subcell_tables(paths["seg"], {"mi": paths["prob"],
                                                              "vc": paths["prob"]},
                                               {"mi": out + "_mi", "vc": out + "_vc"}, **kw),
@@ -164,3 +165,43 @@ def test_step2_entry_points_without_device_raise(monkeypatch, tmp_path):
                                    device="cpu")
     assert res["counts"]["sv"] == 1 and res["stats"]["cell_route"] == "host"
     assert res["extraction"]["vc"]["n_objects"] == 1  # mi's four erosions leave no seed
+
+
+def test_config_driven_entry_points_without_device_raise(monkeypatch, tmp_path):
+    """The working-directory entry points of steps 1, 2 and 6a: CUDA or
+    ``device="cpu"``."""
+    from _torch_helpers import port_wd
+    from syconn_tpu_torch.exec.exec_dense_prediction import predict_cellorganelles
+    from syconn_tpu_torch.exec.exec_init import init_cell_subcell_sds
+    from syconn_tpu_torch.exec.exec_syns import run_syn_generation
+    from syconn_tpu_torch.extraction.cs_extraction import extract_contact_sites
+    from syconn_tpu_torch.handler.config import generate_default_conf
+    from syconn_tpu_torch.io.chunked import ChunkedVolume
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    wd = str(tmp_path / "wd")
+    generate_default_conf(wd, scaling=(10, 10, 20))
+    seg = np.zeros((32, 32, 16), np.uint64)
+    seg[2:15] = 3
+    seg[16:30] = 5
+    with port_wd(wd) as cfg:
+        kd = ChunkedVolume.create(cfg.kd_seg_path, scale=(10, 10, 20), boundary=seg.shape)
+        kd.save_seg(seg)
+        kd.save_raw(np.full(seg.shape, 128, np.uint8))
+        for co in ("mi", "vc"):
+            ChunkedVolume.create(cfg.kd_organelle_proba_paths[co], scale=(10, 10, 20),
+                                 boundary=seg.shape).save_raw(np.zeros(seg.shape, np.uint8))
+        calls = [lambda **kw: predict_cellorganelles(show_progress=False, **kw),
+                 lambda **kw: init_cell_subcell_sds(chunk_size=(32, 32, 16), **kw),
+                 lambda **kw: extract_contact_sites(chunk_shape=(32, 32, 16), **kw),
+                 lambda **kw: run_syn_generation(chunk_size=(32, 32, 16),
+                                                 until="extract_contact_sites", **kw)]
+        for call in calls:
+            for kw in ({}, {"device": "cuda"}):
+                with pytest.raises(RuntimeError, match="CUDA"):
+                    call(**kw)
+        counts = init_cell_subcell_sds(chunk_size=(32, 32, 16), device="cpu")
+        res = run_syn_generation(chunk_size=(32, 32, 16), until="extract_contact_sites",
+                                 device="cpu")
+    assert counts["sv"] == 2 and counts["mi"] == counts["vc"] == 0
+    assert res["n_cs"] == 1

@@ -146,6 +146,44 @@ def test_predictor_kernel_path_matches_cpu_path(dev):
     assert np.mean(d <= 2) >= 0.999
 
 
+def test_organelles_layers_card_match_cpu(dev):
+    """The organelles U-Net layer by layer on the card against the plain CPU
+    path (``tools/engine_layers.py``): each layer alone, fed the CPU's
+    input, within the conv tolerance; softmax and rounding of the same
+    logits within 1 LSB; end to end on chip_smoke's reference input within
+    the budget that phase holds (``chip_smoke.ORG_BUDGET``)."""
+    from syconn_tpu_torch.inference.dense import DenseTilePredictor
+    from syconn_tpu_torch.models.convert import params_from_flax
+    from syconn_tpu_torch.models.io import load_model, packaged_model_path
+    from syconn_tpu_torch.tools.engine_layers import layer_report
+
+    budget = _smoke().ORG_BUDGET
+    model, params = load_model(packaged_model_path("organelles"))
+    vol = np.random.default_rng(1).integers(0, 256, (64, 64, 32), dtype=np.uint8)
+    rows = layer_report(model, params_from_flax(params, dev), params_from_flax(params, "cpu"),
+                        vol[:32, :32, :16], dev)
+    for row in rows[:-1]:
+        assert row["alone"]["median_rel"] < 2e-2 and row["alone"]["share_rel_gt_0.1"] < 2e-2, row
+    assert rows[-1]["max_lsb"] <= 1
+    kw = dict(tile_shape=(64, 64, 32), halo=(16, 16, 8), mode="probs")
+    got = DenseTilePredictor(model, params, device=dev, **kw).predict_array(vol)
+    ref = DenseTilePredictor(model, params, device="cpu", **kw).predict_array(vol)
+    d = np.abs(got.astype(np.int16) - ref.astype(np.int16))
+    assert np.mean(d <= 2) >= budget["within_2_lsb"]
+    assert np.mean(got.argmax(-1) == ref.argmax(-1)) >= budget["argmax_stable"]
+
+
+def _smoke():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
 def _blocky(seed, n_labels, grid, block):
     rng = np.random.default_rng(seed)
     return np.kron(rng.integers(0, n_labels, size=grid).astype(np.uint32),
@@ -155,14 +193,7 @@ def _blocky(seed, n_labels, grid, block):
 def _dense_labels():
     """The dense-label contact shape of chip_smoke.py, cut to 3 x 3 columns:
     blocks of (24, 24, 40) voxels, ~22 live candidates a column of K = 32."""
-    import importlib.util
-    import os
-
-    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "chip_smoke.py")
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    return smoke.blocky_labels((108, 108, 134), (24, 24, 40), seed=11).astype(np.uint32)
+    return _smoke().blocky_labels((108, 108, 134), (24, 24, 40), seed=11).astype(np.uint32)
 
 
 @pytest.mark.parametrize("case", ["tile16", "tile32_ragged", "overflow_k8", "dense_k32"])

@@ -31,12 +31,14 @@ def _few_torch_threads():
 @pytest.fixture()
 def jax_wd(working_dir):
     """The JAX package's working directory, on its single-chip path."""
+    from _torch_helpers import jax_defaults_isolated
     from syconn_tpu import global_params
     from syconn_tpu.handler.config import generate_default_conf
 
-    generate_default_conf(working_dir, scaling=(10, 10, 20),
-                          key_value_pairs=[("tpu", {"shard_pipeline": False})],
-                          force_overwrite=True)
+    with jax_defaults_isolated():  # the override stays in this working directory
+        generate_default_conf(working_dir, scaling=(10, 10, 20),
+                              key_value_pairs=[("tpu", {"shard_pipeline": False})],
+                              force_overwrite=True)
     global_params.wd = working_dir
     resident.clear()
     yield working_dir
@@ -164,12 +166,15 @@ def test_kd_init_takes_the_default_config(tmp_path, jax_wd):
     package's generate_subcell_kd_from_proba reads them."""
     from syconn_tpu import global_params
     from syconn_tpu.extraction.object_extraction import generate_subcell_kd_from_proba
-    from syconn_tpu_torch.exec.exec_init import CELL_OBJECTS, PROCESS_CELL_ORGANELLES, kd_init
+    from syconn_tpu_torch import global_params as tparams
+    from syconn_tpu_torch.exec.exec_init import kd_init
 
     cfg = global_params.config
-    assert list(PROCESS_CELL_ORGANELLES) == list(cfg["process_cell_organelles"])
+    tcfg = tparams.config  # no working directory: the packaged defaults
+    assert tcfg.working_dir is None
+    assert list(tcfg["process_cell_organelles"]) == list(cfg["process_cell_organelles"])
     for key in ("min_obj_vx", "probathresholds", "min_seed_vx", "extract_morph_op"):
-        assert CELL_OBJECTS[key] == dict(cfg["cell_objects"][key]), key
+        assert tcfg["cell_objects"][key] == dict(cfg["cell_objects"][key]), key
     rng = np.random.default_rng(5)
     prob = (rng.random((64, 48, 32)) * 100).astype(np.uint8)
     prob[8:40, 8:40, 6:26] = 230
@@ -181,7 +186,8 @@ def test_kd_init_takes_the_default_config(tmp_path, jax_wd):
     t = str(tmp_path / "t_vc_prob")
     TVolume.create(t, scale=(10, 10, 20), boundary=prob.shape,
                    chunk_shape=(32, 32, 32)).save_raw(prob)
-    stats = kd_init("vc", t, str(tmp_path / "t_vc_seg"), chunk_size=(32, 32, 32), device="cpu")
+    stats = kd_init("vc", chunk_size=(32, 32, 32), proba_path=t,
+                    target_path=str(tmp_path / "t_vc_seg"), device="cpu")
     got = TVolume.open(str(tmp_path / "t_vc_seg")).load_seg(size=prob.shape)
     assert stats["n_objects"] == ref_stats["n_objects"] > 0
     assert np.array_equal(got, ref)

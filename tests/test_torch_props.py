@@ -133,7 +133,7 @@ def test_scan_tables_match_jax_datasets(tmp_path, working_dir, cell_resident):
     from syconn_tpu.handler.basics import clear_kd_cache
     from syconn_tpu.proc.sd_proc import map_subcell_extract_props
     from syconn_tpu.reps.segmentation import SegmentationDataset
-    from syconn_tpu_torch.exec.exec_init import CELL_OBJECTS
+    from syconn_tpu_torch import global_params as tparams
     from syconn_tpu_torch.io import resident
     from syconn_tpu_torch.io.chunked import ChunkedVolume
     from syconn_tpu_torch.proc.sd_proc import map_subcell_extract_props_tables
@@ -155,7 +155,7 @@ def test_scan_tables_match_jax_datasets(tmp_path, working_dir, cell_resident):
             assert resident.put(paths["sv"], "seg", vols["sv"], device="cpu")
         res = map_subcell_extract_props_tables(
             paths["sv"], {"mi": paths["mi"], "vc": paths["vc"]}, chunk_shape=(32, 32, 32),
-            min_obj_vx=CELL_OBJECTS["min_obj_vx"], device="cpu")
+            min_obj_vx=tparams.config["cell_objects"]["min_obj_vx"], device="cpu")
     finally:
         resident.clear()
     assert res["stats"]["cell_route"] == ("resident" if cell_resident else "host")
