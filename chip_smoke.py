@@ -49,7 +49,16 @@ Phases, each failing the run on error:
      the working-directory configuration into ``sv``, ``mi``, ``vc``, ``cs``
      and ``syn`` SegmentationDatasets and a pruned supervoxel graph, on the
      card (all four kernels), checked against the earlier phases' functions
-     and between the resident and streaming contact routes.
+     and between the resident and streaming contact routes;
+  8. the point nets (``phase_points``): the five packaged nets, each on 16
+     contexts at its own npoints, card against CPU (kNN indices equal,
+     logits within the dense budget), with forward, kNN and memory numbers;
+  9. the cells (``phase_slice_cells``): on the pipeline's working directory
+     ``predict_myelin``, step 3 (astrocyte prediction on the card and the
+     split, in a copy with ``prior_astrocyte_removal``; glia probabilities
+     card against CPU on sampled SVs), step 4 (the SuperSegmentationDataset)
+     and step 5 (TEASAR skeletons through the C++ host kernel, myelin per
+     node), each checked.
 
 Phase 4's reference check also holds the organelles U-Net, layer by layer
 and end to end, to its own budget (``ORG_BUDGET``).
@@ -61,6 +70,7 @@ when CUDA is unavailable or the package is missing.
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 import shutil
@@ -1316,6 +1326,287 @@ def phase_slice_pipeline(dev, work: str, shape=(512, 512, 256)):
     global_params.wd = None
     return launches
 
+# point nets (syconn_tpu/models/pretrained/*_pts, spiness): task -> model
+POINT_NETS = ["celltype_pts", "compartment_pts", "glia_pts", "spiness", "tnet_pts"]
+# glia probability (an SV's mean class-1 softmax), card against the CPU:
+# the budget tests/test_torch_cells.py holds the port to against the JAX
+# package
+GLIA_ATOL = 1e-2
+
+
+def _blob_mask(shape=(160, 160, 80), seed: int = 31):
+    """A seeded blob: an ellipsoid with smoothed random bumps."""
+    import numpy as np
+    from scipy import ndimage
+
+    rng = np.random.default_rng(seed)
+    x, y, z = np.meshgrid(*[np.linspace(-1, 1, n) for n in shape], indexing="ij")
+    bumps = ndimage.gaussian_filter(rng.standard_normal(shape), 6)
+    return (x ** 2 + y ** 2 + z ** 2) < 0.6 + 8.0 * bumps
+
+
+def phase_points(dev):
+    """The five packaged point nets on the card, each on one batch of 16
+    contexts at its ``meta.npoints`` (``extract_contexts`` over the
+    surface-nets vertices of a seeded blob), against the port's CPU plain
+    path on the same inputs: kNN indices equal, logits within the dense
+    budget (median relative error < 3e-2, argmax flips < 3e-3, as
+    tests/test_torch_pointnet.py holds them to flax). Per net: forward ms,
+    the kNN part alone (distances, selection, gather), points per second,
+    peak memory. Returns task -> forward ms."""
+    import numpy as np
+    import torch
+
+    from syconn_tpu_torch.inference.points import (ContextPredictor, append_global_scalars,
+                                                   extract_contexts)
+    from syconn_tpu_torch.mesh.surface_nets import surface_net_mesh
+    from syconn_tpu_torch.models.io import load_model, load_model_meta, packaged_model_path
+    from syconn_tpu_torch.models.pointnet import knn_group, knn_indices
+
+    _, verts, _ = surface_net_mesh(_blob_mask(), scale=(10, 10, 20))
+    verts = verts.reshape(-1, 3)
+    types = np.zeros(len(verts), np.int32)
+    types[np.random.default_rng(3).random(len(verts)) < 0.1] = 1  # a few "mi" points
+    out = {}
+    for task in POINT_NETS:
+        path = packaged_model_path(task)
+        meta = load_model_meta(path)
+        npoints = int(meta["npoints"])
+        model, _ = load_model(path)
+        ctx, _ = extract_contexts(verts, types, ctx_size_nm=float(meta.get("ctx_nm", 4000.0)),
+                                  npoints=npoints, n_contexts=16, rng=np.random.default_rng(5))
+        n_global = int(getattr(model, "n_global", 0))
+        if n_global:
+            s = np.random.default_rng(6).standard_normal(n_global).astype(np.float32)
+            ctx = append_global_scalars(ctx, s)
+        x_cpu = torch.from_numpy(np.ascontiguousarray(ctx))
+        with torch.inference_mode():
+            ref = model(x_cpu)
+        pred = ContextPredictor(model, npoints=npoints, batch=16, device=dev)
+        x = x_cpu.to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        got = pred.forward(x)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        k = model._PointBackbone_0.k
+        idx_card = knn_indices(x[..., :3], k).cpu()
+        idx_cpu = knn_indices(x_cpu[..., :3], k)
+        if not torch.equal(idx_card, idx_cpu):
+            raise AssertionError(f"points {task}: kNN indices card != CPU on "
+                                 f"{int((idx_card != idx_cpu).sum())} entries")
+        lg = (got["logits"] if isinstance(got, dict) else got).float().cpu()
+        lr = ref["logits"] if isinstance(ref, dict) else ref
+        rel = (lg - lr).abs() / lr.abs().clamp_min(1e-2)
+        med = float(rel.median())
+        agree = float((lg.argmax(-1) == lr.argmax(-1)).float().mean())
+        if not bool(torch.isfinite(lg).all()) or med >= 3e-2 or agree <= 1 - 3e-3:
+            raise AssertionError(f"points {task}: card vs CPU median rel {med:.3g}, argmax "
+                                 f"agreement {agree:.5f}")
+        if isinstance(got, dict) and "embedding" in got:
+            nrm = torch.linalg.vector_norm(got["embedding"].float(), dim=-1)
+            if float((nrm - 1).abs().max()) > 1e-3:
+                raise AssertionError(f"points {task}: embedding not unit-norm")
+        fwd_ms = cuda_ms(lambda: pred.forward(x), warmup=2, reps=5, inner=4)
+        feats = torch.randn(x.shape[:2] + (model._PointBackbone_0.widths[0],), device=dev,
+                            dtype=torch.bfloat16)
+        knn_ms = cuda_ms(lambda: knn_group(x[..., :3], feats, k), warmup=2, reps=5, inner=4)
+        res = dict(task=task, batch=16, npoints=npoints, channels=int(x.shape[-1]),
+                   forward_ms=fwd_ms, knn_ms=knn_ms, knn_stages=model._PointBackbone_0.knn_stages,
+                   points_per_s=16 * npoints / (fwd_ms / 1e3), peak_bytes=int(peak),
+                   median_rel=med, argmax_agreement=agree, max_abs_err=float((lg - lr).abs().max()))
+        log(f"points forward {task} " + json.dumps(res))
+        if task == "glia_pts":  # step 3's net: where its forward goes
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                pred.forward(x)
+                torch.cuda.synchronize()
+            top = [(e.key[:48], round(getattr(e, "device_time_total", 0.0) / 1e3, 4), e.count)
+                   for e in sorted(prof.key_averages(),
+                                   key=lambda e: -getattr(e, "device_time_total", 0.0))[:8]]
+            log(f"points profile {task} device ms: " + json.dumps(top))
+        out[task] = res
+    return out
+
+
+def _component_sets(g):
+    from syconn_tpu_torch.proc.graphs import component_lists
+
+    return {tuple(c) for c in component_lists(g)}
+
+
+def phase_slice_cells(dev, work: str, glia_forward_ms: float):
+    """Steps 1 (its second call), 3, 4 and 5 through the working-directory
+    configuration, on ``phase_slice_pipeline``'s working directory (its cell
+    segmentation, datasets and pruned graph):
+
+    * ``predict_myelin()`` (``start.py:327``; the myelin U-Net on the three
+      conv kernels) into ``kd_myelin_path``;
+    * step 3 in a copy with ``glia.prior_astrocyte_removal: True``:
+      ``run_astrocyte_prediction_pts()`` on the card, then
+      ``run_astrocyte_splitting()``; the neuron and astrocyte graphs
+      partition the pruned graph's nodes, and on >= 32 sampled SVs the
+      card's ``glia_probas`` equal the port's CPU run of the same driver
+      within ``GLIA_ATOL``;
+    * steps 4-5 in the original directory (the shipped
+      ``prior_astrocyte_removal: False``): ``run_create_neuron_ssd()`` and
+      ``run_skeleton_generation(map_myelin=True, cube_size=chunk)``; the SSD
+      is not empty, each SSV's ``sv_ids`` are one component of the pruned
+      graph, reverse-index lookups equal the mapping dict, every cell has a
+      connected skeleton inside its bounding box (the slack of
+      tests/test_skeleton.py) with one myelin entry per node, and every
+      object went through the C++ TEASAR kernel.
+
+    Returns the conv kernels' launches of ``predict_myelin``."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from syconn_tpu_torch import global_params
+    from syconn_tpu_torch.backend import AttributeDict
+    from syconn_tpu_torch.exec import exec_dense_prediction, exec_inference, exec_init
+    from syconn_tpu_torch.exec import exec_skeleton
+    from syconn_tpu_torch.handler.config import generate_default_conf
+    from syconn_tpu_torch.inference.points import predict_glia_ssv
+    from syconn_tpu_torch.io.chunked import ChunkedVolume
+    from syconn_tpu_torch.io.graph import load_svgraph
+    from syconn_tpu_torch.ops.conv3d import LAUNCHES, reset_launch_counts
+    from syconn_tpu_torch.reps.segmentation import SegmentationDataset
+    from syconn_tpu_torch.reps.super_segmentation import SuperSegmentationDataset
+    from syconn_tpu_torch.skeleton import sparsify, teasar
+    from syconn_tpu_torch.utils.native import get_native
+
+    wd = os.path.join(work, "pipeline_wd")
+    global_params.wd = wd
+    cfg = global_params.config
+    shape = tuple(int(v) for v in ChunkedVolume.open(cfg.kd_seg_path).mag_shape(1))
+    mvox = float(np.prod(shape)) / 1e6
+
+    # step 1's second call: the myelin map that skeleton myelin mapping reads
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    st1 = exec_dense_prediction.predict_myelin(device=dev, show_progress=False)
+    launches = dict(LAUNCHES)
+    for k, per in PER_TILE["myelin"].items():
+        if launches[k] <= 0 or launches[k] != st1["dispatches"] * per:
+            raise AssertionError(f"cells myelin: {k} launched {launches[k]} times, expected "
+                                 f"{st1['dispatches']} dispatches x {per}")
+    log("slice cells myelin " + json.dumps(dict(
+        seconds=st1["seconds"], mvox_per_s=st1["mvox_per_s"], dispatches=st1["dispatches"],
+        launches=launches)))
+
+    # step 3 in a copy: the SV dataset and the pruned graph, volumes in place
+    pruned = load_svgraph(cfg.pruned_svgraph_path)
+    wd3 = os.path.join(work, "cells_wd_astrocytes")
+    generate_default_conf(wd3, scaling=(10, 10, 20), key_value_pairs=[
+        ("glia", {"prior_astrocyte_removal": True})])
+    shutil.copytree(os.path.join(wd, "svs_0"), os.path.join(wd3, "svs_0"))
+    shutil.copy(cfg.pruned_svgraph_path, os.path.join(wd3, os.path.basename(
+        cfg.pruned_svgraph_path)))
+    wd3c = os.path.join(work, "cells_wd_astrocytes_cpu")
+    shutil.copytree(wd3, wd3c)
+    global_params.wd = wd3
+    cfg3 = global_params.config
+    if not cfg3.prior_astrocyte_removal:
+        raise AssertionError("cells: the step-3 copy does not enable astrocyte removal")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st3 = {}
+    exec_inference.run_astrocyte_prediction_pts(device=dev, stats=st3)
+    t_pred = time.perf_counter() - t0
+    split = exec_inference.run_astrocyte_splitting(device=dev)
+    t_split = time.perf_counter() - t0 - t_pred
+    gn = load_svgraph(cfg3.neuron_svgraph_path)
+    ga = load_svgraph(cfg3.astrocyte_svgraph_path)
+    nn_, na = set(gn["nodes"].tolist()), set(ga["nodes"].tolist())
+    if nn_ & na or (nn_ | na) != set(pruned["nodes"].tolist()):
+        raise AssertionError(f"cells: neuron ({len(nn_)}) and astrocyte ({len(na)}) graphs do "
+                             f"not partition the pruned graph's {len(pruned['nodes'])} nodes")
+    sd3 = SegmentationDataset("sv", working_dir=wd3)
+    probas = dict(zip(sd3.ids.tolist(), np.asarray(sd3.load_numpy_data("glia_probas")).tolist()))
+    sample = np.random.default_rng(17).choice(pruned["nodes"], size=min(40, len(
+        pruned["nodes"])), replace=False).astype(np.uint64)
+    if len(sample) < 32:
+        raise AssertionError(f"cells: only {len(sample)} SVs to compare")
+    global_params.wd = wd3c
+    ssd_cpu = SuperSegmentationDataset(working_dir=wd3c, version="cpucheck",
+                                       sv_mapping={int(s): [int(s)] for s in sample}, create=True)
+    t0 = time.perf_counter()
+    predict_glia_ssv(ssd=ssd_cpu, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    sdc = SegmentationDataset("sv", working_dir=wd3c)
+    diffs = [abs(sdc.get_segmentation_object(int(s)).lookup_in_attribute_dict("glia_probas")
+                 - probas[int(s)]) for s in sample]
+    if max(diffs) > GLIA_ATOL:
+        raise AssertionError(f"cells: glia_probas card vs CPU differ by up to {max(diffs):.4g}")
+    busy = st3["dispatches"] * glia_forward_ms / (t_pred * 1e3)
+    log("slice cells astrocytes " + json.dumps(dict(
+        seconds=t_pred, split_seconds=t_split, svs=st3["svs"], contexts=st3["contexts"],
+        dispatches=st3["dispatches"], forward_ms=glia_forward_ms, busy_share=busy,
+        neuron_svs=split["n_neuron_sv"], astrocyte_svs=split["n_glia_sv"],
+        glia_probas_max=max(probas.values()), card_vs_cpu_max_abs=max(diffs),
+        compared_svs=int(len(sample)), cpu_seconds=t_cpu)))
+
+    # steps 4-5 in the original directory (the shipped default: no step 3)
+    global_params.wd = wd
+    cfg = global_params.config
+    if cfg.prior_astrocyte_removal or os.path.isfile(cfg.neuron_svgraph_path):
+        raise AssertionError("cells: the original directory has astrocyte removal on")
+    st4 = {}
+    ssd = exec_init.run_create_neuron_ssd(device=dev, stats=st4)
+    ssv_ids = ssd.ssv_ids
+    attrs = {}
+    for p in glob.glob(os.path.join(ssd.path, "so_storage", "**", "attr_dict.pkl"),
+                       recursive=True):
+        attrs.update(AttributeDict(p, read_only=True, disable_locking=True).copy_intern())
+    comps = _component_sets(pruned)
+    if len(ssv_ids) == 0 or len(ssv_ids) != len(comps) or sorted(attrs) != ssv_ids.tolist():
+        raise AssertionError(f"cells: {len(ssv_ids)} SSVs for {len(comps)} components")
+    for i in ssv_ids.tolist():
+        if tuple(int(s) for s in attrs[i]["sv_ids"]) not in comps:
+            raise AssertionError(f"cells: SSV {i}'s sv_ids are not one pruned component")
+    svs = np.concatenate([np.asarray(v, np.uint64) for v in ssd.mapping_dict.values()])
+    want = np.concatenate([np.full(len(v), k, np.uint64) for k, v in ssd.mapping_dict.items()])
+    if not np.array_equal(SuperSegmentationDataset(working_dir=wd).sv2ssv_ids(svs), want):
+        raise AssertionError("cells: reverse-index lookups != the mapping dict")
+    log("slice cells ssd " + json.dumps(dict(st4, svs=int(len(svs)))))
+
+    if get_native() is None:
+        raise AssertionError("cells: the C++ host library (TEASAR) did not build")
+    teasar.reset_routes()
+    t0 = time.perf_counter()
+    st5 = {}
+    n = exec_skeleton.run_skeleton_generation(map_myelin=True, cube_size=STEP2_CHUNK,
+                                              device=dev, stats=st5)
+    t5 = time.perf_counter() - t0
+    routes = dict(teasar.ROUTES)
+    if routes["native"] == 0 or routes["python"] != 0:
+        raise AssertionError(f"cells: TEASAR routes {routes}: the C++ kernel must take every "
+                             f"object")
+    if n != len(ssv_ids):
+        raise AssertionError(f"cells: {n} skeletons for {len(ssv_ids)} cells")
+    n_nodes = n_myelin = 0
+    for i in ssv_ids.tolist():
+        sso = ssd.get_super_segmentation_object(i)
+        if not sso.load_skeleton():
+            raise AssertionError(f"cells: SSV {i} has no skeleton")
+        sk = sso.skeleton
+        bb = np.asarray(attrs[i]["bounding_box"])
+        nodes = np.asarray(sk["nodes"])
+        if not (len(nodes) and sparsify.skeleton_to_nx(sk).is_connected()
+                and bool((nodes >= bb[0] - 8).all()) and bool((nodes <= bb[1] + 8).all())
+                and len(sk["myelin"]) == len(nodes) == len(sk["myelin_avg10000"])):
+            raise AssertionError(f"cells: SSV {i}'s skeleton is empty, split, outside its box "
+                                 f"or without one myelin entry per node")
+        n_nodes += len(nodes)
+        n_myelin += int(np.sum(sk["myelin"]))
+    log("slice cells skeletons " + json.dumps(dict(
+        st5, seconds=t5, mvox_per_s=mvox / t5, nodes=n_nodes, myelin_nodes=n_myelin,
+        routes=routes)))
+    global_params.wd = None
+    return launches
+
 
 def main() -> int:
     import torch
@@ -1388,6 +1679,14 @@ def main() -> int:
             launches[k] += pipe_launches[k]
         contacts["launches"] += pipe_launches["detect_cs_columns"]
         log(f"slice pipeline phase {time.perf_counter() - t_pipe:.3f} s")
+        t_cells = time.perf_counter()
+        points = phase_points(dev)
+        log(f"points phase {time.perf_counter() - t_cells:.3f} s")
+        t_cells = time.perf_counter()
+        cells_launches = phase_slice_cells(dev, work, points["glia_pts"]["forward_ms"])
+        for k in REPLACES:
+            launches[k] += cells_launches[k]
+        log(f"slice cells phase {time.perf_counter() - t_cells:.3f} s")
     finally:
         resident.clear()
         shutil.rmtree(work, ignore_errors=True)

@@ -1,3 +1,4 @@
+from .bst import BinarySearchStore
 from .storage import (
     AttributeDict,
     CompressedStorage,
@@ -9,6 +10,7 @@ from .storage import (
 )
 
 __all__ = [
+    "BinarySearchStore",
     "AttributeDict",
     "CompressedStorage",
     "MeshStorage",

@@ -6,8 +6,10 @@ directory's ``process_cell_organelles`` from its probability map
 (:func:`kd_init`), runs the fused property, mapping and mesh scan and
 writes the ``sv`` and organelle ``SegmentationDataset``s with their
 ``dataset_analysis`` caches; :func:`run_create_rag` prunes the initial
-supervoxel graph by connected-component size. Both take their paths and
-settings from ``global_params.config``.
+supervoxel graph by connected-component size; :func:`run_create_neuron_ssd`
+(step 4) assembles cells from the neuron graph of step 3, or the pruned
+graph where step 3 did not run, into the ``SuperSegmentationDataset``. They
+take their paths and settings from ``global_params.config``.
 
 :func:`init_cell_subcell_tables` is the same extraction and scan on
 explicit paths, returning the tables instead of writing datasets.
@@ -31,12 +33,13 @@ from ..proc.graphs import create_ccsize_dict
 from ..proc.sd_proc import dataset_analysis, map_subcell_extract_props, \
     map_subcell_extract_props_tables
 from ..reps.segmentation import SegmentationDataset
+from ..utils.device import default_device
 from ..utils.stepcache import StepCache
 
 log = logging.getLogger("syconn_tpu_torch.exec_init")
 
 __all__ = ["kd_init", "sd_init", "init_cell_subcell_sds", "run_create_rag",
-           "init_cell_subcell_tables"]
+           "run_create_neuron_ssd", "init_cell_subcell_tables"]
 
 
 def kd_init(co: str, chunk_size=None, **kw) -> Dict:
@@ -143,6 +146,52 @@ def run_create_rag() -> Dict[str, np.ndarray]:
     lg.info("run_create_rag: %d -> %d SVs after size pruning (min diag %.0f nm)",
             len(nodes), len(keep), min_cc)
     return pruned
+
+
+def run_create_neuron_ssd(overwrite: bool = False, apply_ssv_size_threshold: bool = False,
+                          device=None, stats: Optional[dict] = None):
+    """Cell assembly: the connected components of the neuron graph (written
+    by step 3's astrocyte splitting), else of the pruned graph, become SSVs
+    (id = smallest member SV id); writes the SSD's attribute dicts, caches
+    and reverse index, each cell's SV graph and, for the config's
+    ``process_cell_organelles``, the aggregated organelle mappings and the
+    mapping decisions. Host work; ``device`` is checked as for every entry
+    point (None means the card). ``stats`` (optional dict) receives the
+    cells and the seconds of each part."""
+    from ..proc.graphs import component_lists, induced_subgraph
+    from ..proc.ssd_proc import aggregate_segmentation_object_mappings, apply_mapping_decisions
+    from ..reps.super_segmentation import SuperSegmentationDataset, save_dataset_deep
+
+    lg = initialize_logging("exec_init")
+    default_device(device)
+    t0 = time.perf_counter()
+    cfg = global_params.config
+    path = cfg.neuron_svgraph_path
+    if not os.path.isfile(path):
+        path = cfg.pruned_svgraph_path
+    g = load_svgraph(path)
+    mapping = {c[0]: np.array(c, np.uint64) for c in component_lists(g)}
+    ssd = SuperSegmentationDataset(working_dir=cfg.working_dir, sv_mapping=mapping, create=True)
+    save_dataset_deep(ssd)
+    t1 = time.perf_counter()
+    for ssv_id, members in mapping.items():
+        ssv = ssd.get_super_segmentation_object(ssv_id)
+        os.makedirs(ssv.ssv_dir, exist_ok=True)
+        ssv.save_sv_graph(induced_subgraph(g, members))
+    t2 = time.perf_counter()
+    organelles = list(cfg["process_cell_organelles"])
+    if organelles:
+        aggregate_segmentation_object_mappings(ssd, organelles)
+    t3 = time.perf_counter()
+    if organelles:
+        apply_mapping_decisions(ssd, organelles)
+    t4 = time.perf_counter()
+    if stats is not None:
+        stats.update(cells=len(mapping), graph=os.path.basename(path), seconds=t4 - t0,
+                     dataset_seconds=t1 - t0, sv_graph_seconds=t2 - t1,
+                     mapping_aggregation_seconds=t3 - t2, mapping_decision_seconds=t4 - t3)
+    lg.info("run_create_neuron_ssd: %d cells", len(mapping))
+    return ssd
 
 
 def init_cell_subcell_tables(kd_seg_path: str, prob_paths: Dict[str, str],

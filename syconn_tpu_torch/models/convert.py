@@ -8,8 +8,10 @@ Flax names are kept: ``ConvBlock_i/Conv_j/{kernel,bias}``,
   ``(27, Cin, Cout)`` bf16 (the kernels' layout), their biases bf16,
   LayerNorm parameters f32, the 1x1x1 head as ``(Cin, Nh)`` + ``(Nh,)`` f32
   — the dtypes the JAX engine casts to before its kernels.
-* :func:`module_state_from_flax` gives the plain :class:`UNet3D` module's
-  state dict, kernels as OIDHW f32.
+* :func:`module_state_from_flax` gives the plain modules' state dicts:
+  :class:`UNet3D`'s conv kernels as OIDHW f32, and the point nets'
+  (``models/pointnet.py``) ``Dense`` kernels (in, out) as ``weight``
+  (out, in) f32.
 """
 
 from __future__ import annotations
@@ -55,13 +57,15 @@ def params_from_flax(tree: dict, device=None) -> dict:
 
 
 def module_state_from_flax(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
-    """flax params tree -> :class:`UNet3D` state dict (OIDHW kernels)."""
+    """flax params tree -> the port module's state dict: conv kernels
+    DHWIO -> OIDHW, dense kernels (in, out) -> (out, in)."""
     sd = {}
     for name, p in tree.items():
         key = f"{prefix}{name}"
         if "kernel" in p:
             k = torch.as_tensor(np.asarray(p["kernel"], np.float32))
-            sd[f"{key}.weight"] = k.permute(4, 3, 0, 1, 2).contiguous()
+            k = k.t() if k.dim() == 2 else k.permute(4, 3, 0, 1, 2)
+            sd[f"{key}.weight"] = k.contiguous()
             sd[f"{key}.bias"] = torch.as_tensor(np.asarray(p["bias"], np.float32))
         elif "scale" in p:
             sd[f"{key}.scale"] = torch.as_tensor(np.asarray(p["scale"], np.float32))
@@ -69,3 +73,4 @@ def module_state_from_flax(tree: dict, prefix: str = "") -> Dict[str, torch.Tens
         else:
             sd.update(module_state_from_flax(p, prefix=f"{key}."))
     return sd
+

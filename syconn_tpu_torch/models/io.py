@@ -37,22 +37,29 @@ def _resolve(path: str) -> str:
     raise FileNotFoundError(f"no model at '{path}' and no packaged weights at '{packaged}'")
 
 
-def _build(arch: dict):
-    if arch["cls"] != "UNet3D":
-        raise KeyError(f"model class '{arch['cls']}' is not ported yet")
+def _build(arch: dict, params: dict):
+    from .pointnet import PointClassNet, PointSegNet
     from .unet3d import UNet3D
 
+    classes = {"UNet3D": UNet3D, "PointClassNet": PointClassNet, "PointSegNet": PointSegNet}
+    if arch["cls"] not in classes:
+        raise KeyError(f"model class '{arch['cls']}' is not ported yet")
     kw = {k: v for k, v in arch["kwargs"].items() if k != "dtype"}
     # tuples were serialized as lists
     for k, v in list(kw.items()):
         if isinstance(v, list):
             kw[k] = tuple(tuple(x) if isinstance(x, list) else x for x in v)
-    return UNet3D(**kw)
+    if arch["cls"] != "UNet3D":
+        # flax infers a Dense layer's input width; the port reads it off the kernel
+        kw["n_in"] = int(params["_PointBackbone_0"]["Dense_0"]["kernel"].shape[0])
+    return classes[arch["cls"]](**kw)
 
 
 def load_model(path: str) -> Tuple[Any, dict]:
-    """Load ``(model, params)``: the port's :class:`UNet3D` (CPU, weights
-    loaded) and the flax params tree of numpy arrays."""
+    """Load ``(model, params)``: the port's module (:class:`UNet3D`,
+    :class:`PointClassNet` or :class:`PointSegNet`; CPU, weights loaded) and
+    the flax params tree of numpy arrays. A missing model raises
+    ``FileNotFoundError``: the port never seed-initialises one."""
     from .convert import module_state_from_flax
 
     path = _resolve(path)
@@ -60,7 +67,7 @@ def load_model(path: str) -> Tuple[Any, dict]:
         arch = json.load(f)
     with open(os.path.join(path, "params.msgpack"), "rb") as f:
         params = msgpack_restore(f.read())
-    model = _build(arch)
+    model = _build(arch, params)
     model.load_state_dict(module_state_from_flax(params))
     return model, params
 

@@ -17,6 +17,7 @@ from ..mesh.surface_nets import mesh_area, simplify_mesh, surface_net_mesh
 __all__ = [
     "find_meshes",
     "merge_meshes",
+    "merge_someshes",
     "mesh_area_calc",
     "write_mesh2kzip",
 ]
@@ -84,6 +85,11 @@ def merge_meshes(meshes: Sequence[Sequence[np.ndarray]]) -> List[np.ndarray]:
         return [np.zeros(0, np.int64), np.zeros(0, np.float32), np.zeros(0, np.float32)]
     norm = np.concatenate(all_norm) if (all_norm and sum(len(v) for v in all_vert) == sum(len(n) for n in all_norm)) else np.zeros(0, np.float32)
     return [np.concatenate(all_ind), np.concatenate(all_vert), norm]
+
+
+def merge_someshes(sos, **kw) -> List[np.ndarray]:
+    """Merge the meshes of several segmentation objects."""
+    return merge_meshes([so.mesh for so in sos if so.mesh is not None])
 
 
 def mesh_area_calc(mesh) -> float:

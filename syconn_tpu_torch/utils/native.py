@@ -1,10 +1,11 @@
 """Build and load the port's host kernel library (counterpart of
 ``syconn_tpu/utils/native.py``).
 
-``ops/csrc/kernels.cpp`` is compiled with g++ (-O3 -fopenmp) at first use
-into the build directory of :mod:`syconn_tpu_torch.ops.build`, under a name
-keyed by the source's hash, and loaded with ctypes. Without a compiler
-:func:`get_native` returns None and the callers take their numpy versions.
+``ops/csrc/kernels.cpp`` and ``ops/csrc/teasar.cpp`` are compiled with g++
+(-O3 -fopenmp) at first use into one library in the build directory of
+:mod:`syconn_tpu_torch.ops.build`, under a name keyed by the sources' hash,
+and loaded with ctypes. Without a compiler :func:`get_native` returns None
+and the callers take their numpy versions.
 """
 
 from __future__ import annotations
@@ -23,8 +24,8 @@ from ..ops.build import build_dir
 
 log = logging.getLogger("syconn_tpu_torch.native")
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    "ops", "csrc", "kernels.cpp")
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "ops", "csrc")
+_SRCS = [os.path.join(_CSRC, "kernels.cpp"), os.path.join(_CSRC, "teasar.cpp")]
 _FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-fopenmp", "-march=native"]
 
 _lib: Optional[ctypes.CDLL] = None
@@ -33,15 +34,18 @@ _failed = False
 
 
 def _lib_path() -> str:
-    with open(_SRC, "rb") as f:
-        key = hashlib.sha1(f.read() + " ".join(_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha1(" ".join(_FLAGS).encode())
+    for src in _SRCS:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    key = h.hexdigest()[:12]
     return os.path.join(build_dir(), f"libhostkernels_{key}.so")
 
 
 def _build(lib: str) -> bool:
     tmp = f"{lib}.tmp{os.getpid()}_{threading.get_ident()}"
     try:
-        subprocess.run(["g++"] + _FLAGS + [_SRC, "-o", tmp], check=True,
+        subprocess.run(["g++"] + _FLAGS + _SRCS + ["-o", tmp], check=True,
                        capture_output=True, timeout=300)
         os.replace(tmp, lib)
         return True
@@ -75,5 +79,15 @@ def get_native() -> Optional[ctypes.CDLL]:
         for fn in (lib.detect_seg_boundaries_u32, lib.detect_cs_u32, lib.relabel_u32,
                    lib.relabel_u64):
             fn.restype = None
+        f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+        f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+        i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+        i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+        lib.teasar_grid.argtypes = [
+            u8p, i64, i64, i64, f32p, f64p,
+            ctypes.c_double, i32, ctypes.c_double, ctypes.c_double, i64,
+            i32p, i64, i32p, i64, f32p, i64p, i64p,
+        ]
+        lib.teasar_grid.restype = i32
         _lib = lib
         return _lib

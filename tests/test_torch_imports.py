@@ -38,7 +38,7 @@ def test_port_imports_without_jax_flax_msgpack_or_reference():
     import syconn_tpu_torch
 
     n = len(list(pkgutil.walk_packages(syconn_tpu_torch.__path__, "syconn_tpu_torch.")))
-    assert int(out.stdout.strip().splitlines()[-1]) == n >= 59
+    assert int(out.stdout.strip().splitlines()[-1]) == n >= 72
 
 
 def test_entry_points_without_device_raise(monkeypatch, tmp_path):
@@ -168,11 +168,15 @@ def test_step2_entry_points_without_device_raise(monkeypatch, tmp_path):
 
 
 def test_config_driven_entry_points_without_device_raise(monkeypatch, tmp_path):
-    """The working-directory entry points of steps 1, 2 and 6a: CUDA or
+    """The working-directory entry points of steps 1-5 and 6a: CUDA or
     ``device="cpu"``."""
     from _torch_helpers import port_wd
     from syconn_tpu_torch.exec.exec_dense_prediction import predict_cellorganelles
-    from syconn_tpu_torch.exec.exec_init import init_cell_subcell_sds
+    from syconn_tpu_torch.exec.exec_inference import (run_astrocyte_prediction,
+                                                      run_astrocyte_prediction_pts,
+                                                      run_astrocyte_splitting)
+    from syconn_tpu_torch.exec.exec_init import init_cell_subcell_sds, run_create_neuron_ssd
+    from syconn_tpu_torch.exec.exec_skeleton import run_skeleton_generation
     from syconn_tpu_torch.exec.exec_syns import run_syn_generation
     from syconn_tpu_torch.extraction.cs_extraction import extract_contact_sites
     from syconn_tpu_torch.handler.config import generate_default_conf
@@ -195,7 +199,12 @@ def test_config_driven_entry_points_without_device_raise(monkeypatch, tmp_path):
                  lambda **kw: init_cell_subcell_sds(chunk_size=(32, 32, 16), **kw),
                  lambda **kw: extract_contact_sites(chunk_shape=(32, 32, 16), **kw),
                  lambda **kw: run_syn_generation(chunk_size=(32, 32, 16),
-                                                 until="extract_contact_sites", **kw)]
+                                                 until="extract_contact_sites", **kw),
+                 lambda **kw: run_astrocyte_prediction_pts(**kw),
+                 lambda **kw: run_astrocyte_prediction(**kw),
+                 lambda **kw: run_astrocyte_splitting(**kw),
+                 lambda **kw: run_create_neuron_ssd(**kw),
+                 lambda **kw: run_skeleton_generation(cube_size=(32, 32, 16), **kw)]
         for call in calls:
             for kw in ({}, {"device": "cuda"}):
                 with pytest.raises(RuntimeError, match="CUDA"):

@@ -391,3 +391,42 @@ def test_resident_dense_card_matches_cpu(dev):
     for c in range(model.n_classes):
         assert np.array_equal(res.class_volume_device(packed, grid, c, vol.shape).cpu().numpy(),
                               full[..., c])
+
+
+@pytest.mark.parametrize("name", ["celltype_pts", "compartment_pts", "glia_pts", "spiness",
+                                  "tnet_pts"])
+def test_point_net_card_matches_cpu(dev, name):
+    """The packaged point nets at their own npoints on the card against the
+    CPU: kNN indices equal (ties included), logits within the dense budget
+    (median relative error < 3e-2, argmax flips < 3e-3)."""
+    import json
+    import os
+
+    from syconn_tpu_torch.inference.points import extract_contexts
+    from syconn_tpu_torch.models.io import load_model, packaged_model_path
+    from syconn_tpu_torch.models.pointnet import knn_indices
+
+    path = packaged_model_path(name)
+    with open(os.path.join(path, "arch.json")) as f:
+        arch = json.load(f)
+    npoints, k = int(arch["meta"]["npoints"]), int(arch["kwargs"]["k"])
+    n_global = int(arch["kwargs"].get("n_global", 0))
+    rng = np.random.default_rng(0)
+    coords = (rng.integers(0, 30, (1500, 3)) * np.array([10, 10, 20])).astype(np.float32)
+    types = rng.integers(0, 4, len(coords)).astype(np.int32)
+    ctx, _ = extract_contexts(coords, types, ctx_size_nm=2400, npoints=npoints, n_contexts=4,
+                              rng=np.random.default_rng(1))
+    if n_global:
+        s = rng.normal(size=(4, 1, n_global)).astype(np.float32)
+        ctx = np.concatenate([ctx, np.broadcast_to(s, (4, npoints, n_global))], -1)
+    x = torch.from_numpy(np.ascontiguousarray(ctx))
+    assert torch.equal(knn_indices(x[..., :3].to(dev), k).cpu(), knn_indices(x[..., :3], k))
+    model, _ = load_model(path)
+    with torch.inference_mode():
+        ref = model(x)
+        got = model.to(dev)(x.to(dev))
+    ref = ref["logits"] if isinstance(ref, dict) else ref
+    got = (got["logits"] if isinstance(got, dict) else got).cpu()
+    rel = (got - ref).abs() / ref.abs().clamp_min(1e-2)
+    assert bool(torch.isfinite(got).all()) and float(rel.median()) < 3e-2
+    assert float((got.argmax(-1) != ref.argmax(-1)).float().mean()) < 3e-3

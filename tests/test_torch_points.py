@@ -1,0 +1,172 @@
+"""The array level of the port's point inference
+(``syconn_tpu_torch/inference/points.py``) against the JAX package on the
+CPU: ``extract_contexts`` (surface-sampled centres, random centres, given
+centres, padding, empty clouds), ``certainty_estimate`` and
+``append_global_scalars`` equal exactly; ``ContextPipeline`` on the cases
+of tests/test_points_pipeline.py (batching across items, empty items)
+gives the same outputs, dispatches and rows; ``ContextPredictor`` pads
+short batches and needs the card unless asked for the CPU; the drivers of
+steps 7-9 raise until they are ported."""
+
+import numpy as np
+import pytest
+import torch
+
+from syconn_tpu_torch.inference import points as tpoints
+
+jpoints = pytest.importorskip("syconn_tpu.inference.points")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    """The suite runs files in parallel processes on a shared CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
+def _cloud(n, seed):
+    rng = np.random.default_rng(seed)
+    coords = (rng.random((n, 3)) * np.array([20000, 15000, 9000])).astype(np.float32)
+    types = rng.integers(0, 4, n).astype(np.int32)
+    return coords, types
+
+
+@pytest.mark.parametrize("case", ["surface", "n_contexts", "centers", "padded", "few_types",
+                                  "empty"])
+def test_extract_contexts_equal_jax(case):
+    coords, types = _cloud(4000, 3)
+    kw = dict(ctx_size_nm=6000.0, npoints=256)
+    if case == "n_contexts":
+        kw["n_contexts"] = 7
+    elif case == "centers":
+        kw["centers_nm"] = coords[[5, 100, 2000]] + 50.0
+    elif case == "padded":
+        coords, types = coords[:300], types[:300]
+        kw["npoints"] = 1024
+    elif case == "few_types":
+        types = np.full(len(types), 2, np.int32)  # no cell surface: all points are centres
+    elif case == "empty":
+        coords, types = coords[:0], types[:0]
+    ref, ref_ix = jpoints.extract_contexts(coords, types, rng=np.random.default_rng(9), **kw)
+    got, got_ix = tpoints.extract_contexts(coords, types, rng=np.random.default_rng(9), **kw)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    np.testing.assert_array_equal(got, ref)
+    assert len(got_ix) == len(ref_ix)
+    for a, b in zip(got_ix, ref_ix):
+        np.testing.assert_array_equal(a, b)
+    if case != "empty":
+        assert len(got) > 0
+    if case == "padded":
+        assert all(len(np.unique(ix)) < 1024 for ix in got_ix)
+
+
+def test_certainty_and_global_scalars_equal_jax():
+    rng = np.random.default_rng(1)
+    for logits in (rng.normal(size=8) * 4, rng.normal(size=(5, 3)), np.array([100.0, 0, 0]),
+                   np.ones(4)):
+        assert tpoints.certainty_estimate(logits) == jpoints.certainty_estimate(logits)
+    probs = rng.random(6)
+    assert tpoints.certainty_estimate(probs, is_logit=False) == \
+        jpoints.certainty_estimate(probs, is_logit=False)
+    ctx = rng.normal(size=(3, 64, 7)).astype(np.float32)
+    s = rng.normal(size=12).astype(np.float32)
+    norm = (rng.normal(size=12).astype(np.float32), rng.random(12).astype(np.float32) + 0.5)
+    for nm in (None, norm):
+        np.testing.assert_array_equal(tpoints.append_global_scalars(ctx, s, nm),
+                                      jpoints.append_global_scalars(ctx, s, nm))
+
+
+class _CountingPredictor:
+    """ContextPredictor stand-in that records batch occupancy
+    (tests/test_points_pipeline.py)."""
+
+    def __init__(self, batch=16):
+        self.batch = batch
+        self.dispatched = []
+
+    def dispatch(self, chunk):
+        self.dispatched.append(len(chunk))
+        if len(chunk) < self.batch:
+            pad = np.zeros((self.batch - len(chunk),) + chunk.shape[1:], chunk.dtype)
+            chunk = np.concatenate([chunk, pad])
+        return {"logits": chunk[:, :, 0].mean(axis=1, keepdims=True)}
+
+    def fetch(self, dev):
+        return dev
+
+
+def _run_pipeline(module, items, ctx_of, batch, **kw):
+    pred = _CountingPredictor(batch=batch)
+    pipe = module.ContextPipeline(pred, **kw)
+    got = {}
+
+    def load(i):
+        c = ctx_of.get(i)
+        return (c, None) if c is not None else (None, f"aux{i}")
+
+    def post(i, out, aux):
+        got[i] = (None if out is None else out["logits"][:, 0], aux)
+        return 1
+
+    n = sum(pipe.run(items, load, post))
+    return n, got, pipe, pred
+
+
+@pytest.mark.parametrize("case", ["across_items", "empty_items"])
+def test_context_pipeline_equals_jax(case):
+    rng = np.random.default_rng(0)
+    if case == "across_items":
+        items, batch = list(range(64)), 16
+        ctx_of = {i: rng.normal(size=(int(rng.integers(3, 8)), 64, 7)).astype(np.float32)
+                  for i in items}
+        kw = dict(n_loaders=4, n_writers=4)
+    else:
+        items, batch = list(range(10)), 4
+        ctx_of = {i: np.ones((2, 64, 7), np.float32) * i for i in items if i % 2}
+        kw = {}
+    nj, gj, pj, dj = _run_pipeline(jpoints, items, ctx_of, batch, **kw)
+    nt, gt, pt, dt = _run_pipeline(tpoints, items, ctx_of, batch, **kw)
+    assert nt == nj == len(items)
+    assert sorted(gt) == sorted(gj) == items
+    for i in items:
+        (a, aa), (b, ab) = gt[i], gj[i]
+        assert aa == ab
+        if b is None:
+            assert a is None
+        else:
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_allclose(a, ctx_of[i][:, :, 0].mean(axis=1))
+    assert (pt.n_dispatches, pt.n_rows) == (pj.n_dispatches, pj.n_rows)
+    assert len(dt.dispatched) == len(dj.dispatched) == pt.n_dispatches
+    if case == "across_items":
+        total = sum(len(c) for c in ctx_of.values())
+        assert pt.n_rows == total and pt.n_dispatches == -(-total // batch)
+        assert all(d == batch for d in dt.dispatched[:-1])
+
+
+def test_context_predictor_pads_and_needs_a_device(monkeypatch):
+    from syconn_tpu_torch.models.io import load_model, packaged_model_path
+
+    model, _ = load_model(packaged_model_path("glia_pts"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpoints.ContextPredictor(model, npoints=128, batch=4)
+    pred = tpoints.ContextPredictor(model, npoints=128, batch=4, device="cpu")
+    coords, types = _cloud(2000, 4)
+    ctx, _ = tpoints.extract_contexts(coords, types, ctx_size_nm=8000, npoints=128,
+                                      n_contexts=6, rng=np.random.default_rng(0))
+    out = pred.predict(ctx)
+    assert out.shape == (6, 128, 2)
+    with torch.inference_mode():
+        direct = model(torch.from_numpy(np.concatenate([ctx[4:], np.zeros_like(ctx[:2])])))
+    np.testing.assert_array_equal(out[4:], direct.numpy()[:2])
+    assert pred.predict(ctx[:0]) is None
+
+
+def test_steps_7_to_9_drivers_raise():
+    for fn in (tpoints.predict_celltype_ssd, tpoints.predict_compartments_ssd,
+               tpoints.infere_cell_morphology_ssd, tpoints.predict_celltype_sso):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            fn()
