@@ -58,7 +58,17 @@ Phases, each failing the run on error:
      split, in a copy with ``prior_astrocyte_removal``; glia probabilities
      card against CPU on sampled SVs), step 4 (the SuperSegmentationDataset)
      and step 5 (TEASAR skeletons through the C++ host kernel, myelin per
-     node), each checked.
+     node), each checked;
+ 10. the synapses (``phase_slice_synapses``): steps 6 and 6.5 on the same
+     working directory with ``syntype_avail: True``: ``predict_synapsetype``
+     (the syntype U-Net on the three conv kernels), ``run_syn_generation``
+     whole (the contact kernel, then ``syn_ssv``, organelle mapping,
+     ``syn_prob``, the cells' synapse lists) and ``run_cs_ssv_generation``,
+     each dataset checked (ids, partners, signs, caches, meshes);
+ 11. the morphology (``phase_slice_morphology``): steps 7-9 and the export
+     (axoness, spiness, spine-head volumes, the embedding, cell types, the
+     matrix), the outputs checked per cell and the four point-net
+     predictions card against CPU on 10 cells.
 
 Phase 4's reference check also holds the organelles U-Net, layer by layer
 and end to end, to its own budget (``ORG_BUDGET``).
@@ -1435,6 +1445,17 @@ def _component_sets(g):
     return {tuple(c) for c in component_lists(g)}
 
 
+def _attr_dicts(sd_path: str) -> dict:
+    """Every attribute dict under a dataset directory, merged."""
+    from syconn_tpu_torch.backend import AttributeDict
+
+    out = {}
+    for p in glob.glob(os.path.join(sd_path, "so_storage", "**", "attr_dict.pkl"),
+                       recursive=True):
+        out.update(AttributeDict(p, read_only=True, disable_locking=True).copy_intern())
+    return out
+
+
 def phase_slice_cells(dev, work: str, glia_forward_ms: float):
     """Steps 1 (its second call), 3, 4 and 5 through the working-directory
     configuration, on ``phase_slice_pipeline``'s working directory (its cell
@@ -1464,7 +1485,6 @@ def phase_slice_cells(dev, work: str, glia_forward_ms: float):
     import torch
 
     from syconn_tpu_torch import global_params
-    from syconn_tpu_torch.backend import AttributeDict
     from syconn_tpu_torch.exec import exec_dense_prediction, exec_inference, exec_init
     from syconn_tpu_torch.exec import exec_skeleton
     from syconn_tpu_torch.handler.config import generate_default_conf
@@ -1556,10 +1576,7 @@ def phase_slice_cells(dev, work: str, glia_forward_ms: float):
     st4 = {}
     ssd = exec_init.run_create_neuron_ssd(device=dev, stats=st4)
     ssv_ids = ssd.ssv_ids
-    attrs = {}
-    for p in glob.glob(os.path.join(ssd.path, "so_storage", "**", "attr_dict.pkl"),
-                       recursive=True):
-        attrs.update(AttributeDict(p, read_only=True, disable_locking=True).copy_intern())
+    attrs = _attr_dicts(ssd.path)
     comps = _component_sets(pruned)
     if len(ssv_ids) == 0 or len(ssv_ids) != len(comps) or sorted(attrs) != ssv_ids.tolist():
         raise AssertionError(f"cells: {len(ssv_ids)} SSVs for {len(comps)} components")
@@ -1606,6 +1623,306 @@ def phase_slice_cells(dev, work: str, glia_forward_ms: float):
         routes=routes)))
     global_params.wd = None
     return launches
+
+
+def phase_slice_synapses(dev, work: str):
+    """Steps 6 and 6.5 on ``phase_slice_pipeline``'s working directory (its
+    cells, SSD and skeletons from ``phase_slice_cells``), as
+    ``start.py:355-366`` runs them: ``syntype_avail: True`` in the config,
+    ``predict_synapsetype()`` (the syntype U-Net on the three conv kernels)
+    into ``kd_asym_path``/``kd_sym_path``, ``run_syn_generation()`` whole
+    (the contact kernel, then agglomeration into ``syn_ssv``, organelle
+    mapping, ``syn_prob`` and the cells' synapse lists) and
+    ``run_cs_ssv_generation()``. Checks: ``syn_ssv`` and ``cs_ssv`` not
+    empty, ids 1..n in ``(partners, rep_coord)`` order, partners two distinct
+    SSVs of the SSD, ``cs_ids`` ids of the fragment dataset, ``syn_sign``
+    -1 exactly where the stored ``sym_prop / (asym_prop + sym_prop)``
+    exceeds ``sym_thresh``, every SSV's ``syn_ssv`` the inversion of the
+    partners, one row per object in the mapping caches, ``syn_prob`` in
+    [0, 1], sampled meshes not empty. Returns the kernels' launches."""
+    import numpy as np
+    import torch
+
+    from syconn_tpu_torch import global_params
+    from syconn_tpu_torch.exec import exec_dense_prediction, exec_syns
+    from syconn_tpu_torch.handler.config import generate_default_conf
+    from syconn_tpu_torch.io.chunked import ChunkedVolume
+    from syconn_tpu_torch.ops.conv3d import LAUNCHES, reset_launch_counts
+    from syconn_tpu_torch.reps.segmentation import SegmentationDataset
+    from syconn_tpu_torch.reps.super_segmentation import SuperSegmentationDataset
+
+    wd = os.path.join(work, "pipeline_wd")
+    generate_default_conf(wd, scaling=(10, 10, 20), key_value_pairs=[("syntype_avail", True)],
+                          force_overwrite=True)
+    global_params.wd = wd
+    cfg = global_params.config
+    cfg._parse_config()
+    if not cfg.syntype_available:
+        raise AssertionError("synapses: syntype_avail did not reach the configuration")
+    shape = tuple(int(v) for v in ChunkedVolume.open(cfg.kd_seg_path).mag_shape(1))
+    mvox = float(np.prod(shape)) / 1e6
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    st1 = exec_dense_prediction.predict_synapsetype(device=dev, show_progress=False)
+    launches = dict(LAUNCHES)
+    for k, per in PER_TILE["syntype"].items():
+        if launches[k] <= 0 or launches[k] != st1["dispatches"] * per:
+            raise AssertionError(f"synapses syntype: {k} launched {launches[k]} times, "
+                                 f"expected {st1['dispatches']} dispatches x {per}")
+    for t in ("asym", "sym"):
+        out = ChunkedVolume.open(getattr(cfg, f"kd_{t}_path")).load_raw(size=shape)
+        if int(out.max()) == int(out.min()):
+            raise AssertionError(f"synapses syntype: {t} map is constant")
+    log("slice synapses predict_synapsetype " + json.dumps(dict(
+        seconds=st1["seconds"], mvox_per_s=st1["mvox_per_s"], dispatches=st1["dispatches"],
+        conv_launches={k: launches[k] for k in PER_TILE["syntype"]})))
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = exec_syns.run_syn_generation(chunk_size=STEP2_CHUNK, overwrite=True, device=dev)
+    t_syn = time.perf_counter() - t0
+    launches["detect_cs_columns"] = LAUNCHES["detect_cs_columns"]
+    if not (launches["detect_cs_columns"] == res["stats"]["dispatched"] > 0):
+        raise AssertionError(f"synapses: contact kernel launched {launches['detect_cs_columns']}"
+                             f" times for {res['stats']['dispatched']} chunks")
+    stages = res["stages"]
+    log("slice synapses extract_contact_sites " + json.dumps(dict(
+        seconds=stages["extract_contact_sites"], mvox_per_s=mvox / stages["extract_contact_sites"],
+        n_cs=res["n_cs"], n_syn=res["n_syn"], kernel_launches=launches["detect_cs_columns"])))
+    log("slice synapses combine_and_split_syn " + json.dumps(dict(
+        seconds=stages["combine_and_split_syn"], partner_pairs=res["n_pairs"],
+        objects=res["n_syn_ssv"])))
+    for name in ("map_objects_from_synssv_partners", "classify_synssv_objects",
+                 "map_synssv_objects", "dataset_analysis"):
+        log(f"slice synapses {name} " + json.dumps(dict(seconds=stages[name])))
+    t0 = time.perf_counter()
+    res_cs = exec_syns.run_cs_ssv_generation(device=dev)
+    log("slice synapses combine_and_split_cs " + json.dumps(dict(
+        seconds=time.perf_counter() - t0, partner_pairs=res_cs["n_pairs"],
+        objects=res_cs["n_cs_ssv"])))
+    log(f"slice synapses run_syn_generation total {t_syn:.3f} s")
+
+    ssd = SuperSegmentationDataset(working_dir=wd)
+    ssv_ids = set(int(i) for i in ssd.ssv_ids)
+    sym_thresh = float(cfg["cell_objects"]["sym_thresh"])
+    counts = {}
+    for t, frag in (("syn_ssv", "syn"), ("cs_ssv", "cs")):
+        sd = SegmentationDataset(t, working_dir=wd)
+        n = len(sd.ids)
+        partners = sd.load_numpy_data("neuron_partners")
+        reps = np.asarray(sd.rep_coords)
+        order = sorted(range(n), key=lambda i: (int(partners[i, 0]), int(partners[i, 1]),
+                                                tuple(reps[i])))
+        if n == 0 or sd.ids.tolist() != list(range(1, n + 1)) or order != list(range(n)):
+            raise AssertionError(f"synapses: {t} has {n} objects, ids not 1..n in (partners, "
+                                 f"rep_coord) order")
+        if not all(a != b and a in ssv_ids and b in ssv_ids for a, b in partners.tolist()):
+            raise AssertionError(f"synapses: {t} partners are not two distinct SSVs")
+        frag_ids = set(SegmentationDataset(frag, working_dir=wd).ids.tolist())
+        attrs = _attr_dicts(sd.path)
+        if sorted(attrs) != sd.ids.tolist() or not all(
+                set(np.asarray(a["cs_ids"]).tolist()) <= frag_ids for a in attrs.values()):
+            raise AssertionError(f"synapses: {t} cs_ids are not ids of {frag}")
+        counts[t] = n
+        if t != "syn_ssv":
+            continue
+        asym, sym = sd.load_numpy_data("asym_prop"), sd.load_numpy_data("sym_prop")
+        denom = asym + sym
+        want = np.where((denom > 0) & (sym / np.where(denom > 0, denom, 1) > sym_thresh), -1, 1)
+        if not np.array_equal(sd.load_numpy_data("syn_sign"), want):
+            raise AssertionError("synapses: syn_sign != -1 exactly where the symmetric ratio "
+                                 "exceeds sym_thresh")
+        for co in ("mi", "vc"):
+            for key in (f"n_{co}_objs", f"n_{co}_vxs", f"min_dst_{co}_nm"):
+                for j in (0, 1):
+                    v = sd.load_numpy_data(f"{key}_{j}")
+                    if v is None or len(v) != n:
+                        raise AssertionError(f"synapses: {key}_{j} has no row per object")
+        prob = sd.load_numpy_data("syn_prob")
+        if len(prob) != n or not (prob.min() >= 0 and prob.max() <= 1):
+            raise AssertionError("synapses: syn_prob outside [0, 1]")
+        inv = {i: [] for i in ssv_ids}
+        for sid, (a, b) in zip(sd.ids.tolist(), partners.tolist()):
+            inv[a].append(sid)
+            inv[b].append(sid)
+        for i in ssv_ids:
+            got = ssd.get_super_segmentation_object(i).lookup_in_attribute_dict("syn_ssv")
+            if got is None or np.asarray(got).tolist() != sorted(inv[i]):
+                raise AssertionError(f"synapses: SSV {i}'s syn_ssv != the partners' inversion")
+        rng = np.random.default_rng(23)
+        for oid in rng.choice(sd.ids, size=min(8, n), replace=False).tolist():
+            mesh = sd.get_segmentation_object(int(oid)).mesh
+            if mesh is None or len(mesh[0]) == 0 or not np.isfinite(mesh[1]).all():
+                raise AssertionError(f"synapses: syn_ssv {oid} has no mesh")
+        counts["syn_sign_negative"] = int((want < 0).sum())
+        counts["syn_prob_mean"] = float(prob.mean())
+        counts["cells_with_synapses"] = sum(1 for v in inv.values() if v)
+    log("slice synapses datasets " + json.dumps(counts))
+    global_params.wd = None
+    return launches
+
+
+# card against CPU on the step 7-9 predictions (chip_smoke.py and
+# tests/test_torch_kernels_cuda.py): node and vertex label agreement, and the
+# embedding's absolute tolerance
+LABEL_AGREEMENT = 0.98
+EMBED_ATOL = 1e-3
+
+
+def phase_slice_morphology(dev, work: str, forward_ms: dict):
+    """Steps 7-9 and the export on the same working directory, as
+    ``start.py:367-388`` runs them: ``run_semsegaxoness_prediction()``,
+    ``run_semsegspiness_prediction()``, ``run_spinehead_volume_calc()``,
+    ``run_morphology_embedding()``,
+    ``run_celltype_prediction()`` and ``run_matrix_export()``, the nets on
+    the card. Checks: every cell with a skeleton has ``axoness``,
+    ``axoness_avg10000`` and ``spiness`` per node and ``*_vertex_labels``
+    per mesh vertex; ``celltype_cnn_e3`` in [0, 8), its certainty in [0, 1];
+    ``latent_morph`` finite of width ``ndim_embedding``; ``spinehead_vol``
+    one non-negative entry per ``syn_ssv``; the CSV one row per ``syn_prob
+    >= thresh_synssv_proba``, the NPZ the same rows. Card against CPU: the
+    four predictions again with ``device="cpu"`` on >= 8 cells in a copy of the
+    directory taken before step 7: label agreement >= ``LABEL_AGREEMENT``,
+    celltype logits within the dense budget, embeddings within
+    ``EMBED_ATOL``."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from syconn_tpu_torch import global_params
+    from syconn_tpu_torch.exec import exec_inference, exec_syns
+    from syconn_tpu_torch.inference import points
+    from syconn_tpu_torch.reps.segmentation import SegmentationDataset
+    from syconn_tpu_torch.reps.super_segmentation import SuperSegmentationDataset
+
+    wd = os.path.join(work, "pipeline_wd")
+    global_params.wd = wd
+    cfg = global_params.config
+    ssd = SuperSegmentationDataset(working_dir=wd)
+    ssv_ids = [int(i) for i in ssd.ssv_ids]
+    # the CPU copy: the datasets the predictions read, before step 7 writes
+    wc = os.path.join(work, "morphology_wd_cpu")
+    os.makedirs(wc)
+    shutil.copy(os.path.join(wd, "config.yml"), wc)
+    for d in ("ssv_0", "svs_0", "mis_0", "vcs_0", "syn_ssvs_0"):
+        shutil.copytree(os.path.join(wd, d), os.path.join(wc, d))
+    sample = [int(i) for i in np.random.default_rng(29).choice(ssv_ids, size=min(10, len(
+        ssv_ids)), replace=False)]
+    if len(sample) < 8:
+        raise AssertionError(f"morphology: only {len(sample)} cells to compare")
+
+    def net_stage(name, fn, task):
+        torch.cuda.synchronize()
+        st = {}
+        fn(device=dev, stats=st)
+        busy = st["dispatches"] * forward_ms[task] / (st["seconds"] * 1e3)
+        log(f"slice morphology {name} " + json.dumps(dict(
+            seconds=st["seconds"], cells=st["cells"], predicted=st["predicted"],
+            contexts=st["contexts"], dispatches=st["dispatches"], npoints=st["npoints"],
+            forward_ms=forward_ms[task], busy_share=busy)))
+
+    net_stage("run_semsegaxoness_prediction", exec_inference.run_semsegaxoness_prediction,
+              "compartment_pts")
+    net_stage("run_semsegspiness_prediction", exec_inference.run_semsegspiness_prediction,
+              "spiness")
+    sd_syn = SegmentationDataset("syn_ssv", working_dir=wd)
+    st = {}
+    t0 = time.perf_counter()
+    shv = exec_syns.run_spinehead_volume_calc(device=dev, stats=st)
+    log("slice morphology run_spinehead_volume_calc " + json.dumps(dict(
+        st, seconds=time.perf_counter() - t0, synapses=int(len(sd_syn.ids)),
+        max_um3=float(shv.max()) if len(shv) else 0.0)))
+    if len(shv) != len(sd_syn.ids) or (shv < 0).any():
+        raise AssertionError("morphology: spinehead_vol is not one non-negative entry per "
+                             "syn_ssv")
+    net_stage("run_morphology_embedding", exec_inference.run_morphology_embedding, "tnet_pts")
+    net_stage("run_celltype_prediction", exec_inference.run_celltype_prediction,
+              "celltype_pts")
+    t0 = time.perf_counter()
+    csv = exec_syns.run_matrix_export(device=dev)
+    prob = SegmentationDataset("syn_ssv", working_dir=wd).load_numpy_data("syn_prob")
+    n_rows = int((prob >= float(cfg["cell_objects"]["thresh_synssv_proba"])).sum())
+    with open(csv) as f:
+        lines = f.read().strip().split("\n")
+    with np.load(csv[:-4] + ".npz") as z:
+        npz_rows = [len(z[k]) for k in z.files]
+        npz_ids = z["ids"].tolist()
+    csv_ids = [int(ln.split(",")[0]) for ln in lines[1:]]
+    if len(lines) - 1 != n_rows or set(npz_rows) != {n_rows} or csv_ids != npz_ids:
+        raise AssertionError(f"morphology: the matrix has {len(lines) - 1} CSV rows and NPZ "
+                             f"rows {set(npz_rows)} for {n_rows} synapses above threshold")
+    log("slice morphology run_matrix_export " + json.dumps(dict(
+        seconds=time.perf_counter() - t0, rows=n_rows, synapses=int(len(prob)))))
+
+    # outputs per cell
+    ndim = int(cfg["tcmn"]["ndim_embedding"])
+    attrs = _attr_dicts(ssd.path)
+    for i in ssv_ids:
+        sso = ssd.get_super_segmentation_object(i)
+        a = attrs[i]
+        if sso.load_skeleton():
+            sk = sso.skeleton
+            n_nodes = len(sk["nodes"])
+            n_vert = len(sso.load_mesh("sv")[1]) // 3
+            if not all(len(sk.get(k, [])) == n_nodes
+                       for k in ("axoness", "axoness_avg10000", "spiness")) or not all(
+                    len(a.get(f"{k}_vertex_labels", [])) == n_vert for k in ("axoness", "spiness")):
+                raise AssertionError(f"morphology: SSV {i} lacks per-node or per-vertex labels")
+        z = np.asarray(a.get("latent_morph", []))
+        if not (0 <= a.get("celltype_cnn_e3", -1) < 8 and 0 <= a["celltype_cnn_e3_certainty"] <= 1
+                and z.shape == (ndim,) and np.isfinite(z).all()):
+            raise AssertionError(f"morphology: SSV {i}'s cell type or embedding is malformed")
+
+    # card against CPU on the sample, in the copy
+    global_params.wd = wc
+    cfg_c = global_params.config
+    ssd_c = SuperSegmentationDataset(working_dir=wc)
+    t0 = time.perf_counter()
+    points.predict_compartments_ssd(ssd=ssd_c, ssv_ids=sample, skel_key="axoness", n_classes=3,
+                                    device="cpu")
+    points.predict_compartments_ssd(ssd=ssd_c, ssv_ids=sample, skel_key="spiness", n_classes=4,
+                                    mpath=cfg_c.mpath_spiness, device="cpu")
+    points.infere_cell_morphology_ssd(ssd=ssd_c, ssv_ids=sample, device="cpu")
+    points.predict_celltype_ssd(ssd=ssd_c, ssv_ids=sample, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    attrs_c = _attr_dicts(ssd_c.path)
+    agree = {k: [] for k in ("axoness", "spiness", "axoness_vertex_labels",
+                             "spiness_vertex_labels")}
+    rel_med, flips, emb_err, ct_equal = [], [], [], 0
+    for i in sample:
+        a, c = attrs[i], attrs_c[i]
+        s_card = ssd.get_super_segmentation_object(i)
+        s_cpu = ssd_c.get_super_segmentation_object(i)
+        if s_card.load_skeleton() and s_cpu.load_skeleton():
+            for k in ("axoness", "spiness"):
+                agree[k].append(float(np.mean(s_card.skeleton[k] == s_cpu.skeleton[k])))
+        for k in ("axoness_vertex_labels", "spiness_vertex_labels"):
+            if k in a:
+                agree[k].append(float(np.mean(np.asarray(a[k]) == np.asarray(c[k]))))
+        lg, lr = (torch.from_numpy(np.asarray(x[ "celltype_cnn_e3_probas"], np.float32))
+                  for x in (a, c))
+        rel_med.append(float(((lg - lr).abs() / lr.abs().clamp_min(1e-2)).median()))
+        flips.append(float((lg.argmax(-1) != lr.argmax(-1)).float().mean()))
+        emb_err.append(float(np.abs(np.asarray(a["latent_morph"]) -
+                                    np.asarray(c["latent_morph"])).max()))
+        ct_equal += int(a["celltype_cnn_e3"] == c["celltype_cnn_e3"])
+    worst = {k: min(v) if v else None for k, v in agree.items()}
+    log("slice morphology card_vs_cpu " + json.dumps(dict(
+        cells=len(sample), label_agreement_min=worst, celltype_equal=ct_equal,
+        celltype_logits_median_rel_max=max(rel_med), celltype_argmax_flips_max=max(flips),
+        embedding_max_abs=max(emb_err), cpu_seconds=t_cpu)))
+    if any(v is None or v < LABEL_AGREEMENT for v in worst.values()):
+        raise AssertionError(f"morphology: card vs CPU label agreement {worst} below "
+                             f"{LABEL_AGREEMENT}")
+    if max(rel_med) >= 3e-2 or max(flips) >= 3e-3:
+        raise AssertionError(f"morphology: celltype logits card vs CPU median rel "
+                             f"{max(rel_med):.3g}, argmax flips {max(flips):.3g}")
+    if max(emb_err) > EMBED_ATOL:
+        raise AssertionError(f"morphology: embeddings card vs CPU differ by {max(emb_err):.3g}")
+    global_params.wd = None
 
 
 def main() -> int:
@@ -1687,6 +2004,15 @@ def main() -> int:
         for k in REPLACES:
             launches[k] += cells_launches[k]
         log(f"slice cells phase {time.perf_counter() - t_cells:.3f} s")
+        t_syn = time.perf_counter()
+        syn_launches = phase_slice_synapses(dev, work)
+        for k in REPLACES:
+            launches[k] += syn_launches[k]
+        contacts["launches"] += syn_launches["detect_cs_columns"]
+        log(f"slice synapses phase {time.perf_counter() - t_syn:.3f} s")
+        t_morph = time.perf_counter()
+        phase_slice_morphology(dev, work, {t: r["forward_ms"] for t, r in points.items()})
+        log(f"slice morphology phase {time.perf_counter() - t_morph:.3f} s")
     finally:
         resident.clear()
         shutil.rmtree(work, ignore_errors=True)

@@ -15,7 +15,8 @@ YAML is read and written by :mod:`.yamlio`; the port does not need PyYAML.
 Model paths (``mpath_*``) name ``<wd>/models/<name>`` where a model was
 saved there, else the packaged weights of that name
 (:func:`..models.io.packaged_model_path`), which is where the JAX package's
-loader falls back to as well.
+loader falls back to as well; ``mpath_syn_rfc`` is always the file
+``<wd>/models/syn_rfc.pkl``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -316,7 +317,9 @@ class Config:
 
     @property
     def mpath_syn_rfc(self) -> str:
-        return self._mpath("syn_rfc.pkl")
+        """The pickled synapse forest in the working directory (a file, not a
+        weight directory: no packaged fallback)."""
+        return os.path.join(self.model_dir, "syn_rfc.pkl")
 
     @property
     def mpath_er(self) -> str:

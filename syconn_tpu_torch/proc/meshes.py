@@ -1,8 +1,11 @@
 """Mesh processing: per-chunk object meshing, merging, export (counterpart
 of ``syconn_tpu/proc/meshes.py``, the same numpy code): ``find_meshes``
 (surface nets per object of a label chunk), ``merge_meshes``,
-``mesh_area_calc`` and ``write_mesh2kzip``. The view
-and cell-level helpers come with the steps that use them.
+``mesh_area_calc``, ``write_mesh2kzip``, ``triangulation_from_coords``
+(meshes of the cell-level synapses and contacts, step 6) and
+``compartmentalize_mesh`` (a cell mesh split by its vertex labels, step 7).
+The view helpers (``calc_rot_matrices``, ``MeshObject``) come with the
+views, ROADMAP Queue 1 item 9.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ __all__ = [
     "merge_someshes",
     "mesh_area_calc",
     "write_mesh2kzip",
+    "triangulation_from_coords",
+    "compartmentalize_mesh",
 ]
 
 
@@ -95,6 +100,49 @@ def merge_someshes(sos, **kw) -> List[np.ndarray]:
 def mesh_area_calc(mesh) -> float:
     """Surface area in µm²."""
     return mesh_area(np.asarray(mesh[0]), np.asarray(mesh[1]))
+
+
+def triangulation_from_coords(
+    coords_nm: np.ndarray, voxel_size_nm: float = 20.0, offset=None, depth: int = 0
+) -> List[np.ndarray]:
+    """Mesh a point cloud by voxelizing at ``voxel_size_nm`` + surface nets
+    (the cs_ssv / syn_ssv meshes): watertight and deterministic."""
+    coords = np.asarray(coords_nm, np.float64)
+    if len(coords) == 0:
+        return [np.zeros(0, np.int32), np.zeros(0, np.float32), np.zeros(0, np.float32)]
+    lo = coords.min(axis=0) - voxel_size_nm
+    q = np.floor((coords - lo) / voxel_size_nm).astype(np.int64)
+    sh = q.max(axis=0) + 2
+    mask = np.zeros(tuple(sh), bool)
+    mask[q[:, 0], q[:, 1], q[:, 2]] = True
+    # close single-voxel gaps
+    mask = ndimage.binary_closing(mask, structure=np.ones((3, 3, 3), bool))
+    ind, vert, norm = surface_net_mesh(mask, scale=(voxel_size_nm,) * 3)
+    vert = vert.reshape(-1, 3) + lo[None].astype(np.float32)
+    return [ind, vert.reshape(-1), norm]
+
+
+def compartmentalize_mesh(ssv, semseg_key: str = "axoness") -> Dict[int, List[np.ndarray]]:
+    """Split a cell mesh into per-compartment sub-meshes by vertex labels.
+    Triangles vote by majority of their three vertices."""
+    labels = ssv.lookup_in_attribute_dict(f"{semseg_key}_vertex_labels")
+    if labels is None:
+        raise ValueError(f"Cell {ssv.id} has no '{semseg_key}' vertex labels.")
+    labels = np.asarray(labels)
+    mesh = ssv.load_mesh("sv")
+    f = np.asarray(mesh[0], np.int64).reshape(-1, 3)
+    v = np.asarray(mesh[1], np.float32).reshape(-1, 3)
+    tri_labels = np.median(labels[f], axis=1).astype(np.int64)
+    out: Dict[int, List[np.ndarray]] = {}
+    for lab in np.unique(tri_labels):
+        sel = f[tri_labels == lab]
+        used, inv = np.unique(sel.reshape(-1), return_inverse=True)
+        out[int(lab)] = [
+            inv.astype(np.int64),
+            v[used].reshape(-1),
+            np.zeros(0, np.float32),
+        ]
+    return out
 
 
 def write_mesh2kzip(kzip_path: str, ind, vert, norm, color, ply_fname: str):

@@ -1,15 +1,14 @@
-"""SSD processing: organelle mapping aggregation and decisions (counterpart
-of ``syconn_tpu/proc/ssd_proc.py``).
+"""SSD processing: organelle mapping aggregation and decisions, and the
+synapses of each cell (counterpart of ``syconn_tpu/proc/ssd_proc.py``).
 
-``map_synssv_objects`` (synapses into partner cells, step 6) and
-``split_ssv`` come with ROADMAP Queue 1 item 7.
+``split_ssv`` (a cell split in two by hand) is not ported yet.
 """
 
 from __future__ import annotations
 
 import logging
 from collections import defaultdict
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -20,7 +19,8 @@ from ..reps.super_segmentation import SuperSegmentationDataset
 
 log = logging.getLogger("syconn_tpu_torch.ssd_proc")
 
-__all__ = ["aggregate_segmentation_object_mappings", "apply_mapping_decisions"]
+__all__ = ["aggregate_segmentation_object_mappings", "apply_mapping_decisions",
+           "map_synssv_objects"]
 
 
 def aggregate_segmentation_object_mappings(
@@ -112,3 +112,30 @@ def apply_mapping_decisions(
         return ssv_id
 
     map_parallel(decide, list(ssd.ssv_ids), n_workers=n_workers)
+
+
+def map_synssv_objects(
+    ssd: Optional[SuperSegmentationDataset] = None,
+    n_workers: Optional[int] = None,
+):
+    """Write each cell's syn_ssv ids (sorted) into its attribute dict
+    (``syn_ssv``): the inversion of the synapses' ``neuron_partners``."""
+    if ssd is None:
+        ssd = SuperSegmentationDataset(working_dir=global_params.config.working_dir)
+    sd_syn = SegmentationDataset("syn_ssv", working_dir=ssd.working_dir, config=ssd.config)
+    syn_ids = sd_syn.ids
+    partners = sd_syn.load_numpy_data("neuron_partners")
+    per_ssv: Dict[int, List[int]] = defaultdict(list)
+    if partners is not None:
+        for syn_id, pp in zip(syn_ids, partners):
+            for p in np.atleast_1d(pp):
+                per_ssv[int(p)].append(int(syn_id))
+
+    def write(ssv_id):
+        ssv = ssd.get_super_segmentation_object(int(ssv_id))
+        ssv.load_attr_dict()
+        ssv.attr_dict["syn_ssv"] = np.array(sorted(per_ssv.get(int(ssv_id), [])), np.uint64)
+        ssv.save_attr_dict()
+        return ssv_id
+
+    map_parallel(write, list(ssd.ssv_ids), n_workers=n_workers)

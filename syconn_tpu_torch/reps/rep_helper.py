@@ -3,10 +3,10 @@
 (``subfold_from_ix_new`` groups consecutive 1000-ID blocks into the same
 shard, ``subfold_from_ix_OLD`` is digit-based), the inverse
 ``ix_from_subfold``, ``get_unique_subfold_ixs``, ``surface_samples`` and
-the working-directory plumbing of the dataset classes. ``knossos_ml_from_sso``
-needs a cell reconstruction (``SuperSegmentationObject``), which the port
-does not have yet; ``colorcode_vertices`` and ``assign_rep_values`` come
-with the steps that use them.
+the working-directory plumbing of the dataset classes, and
+``colorcode_vertices`` (labels onto mesh vertices by k-nearest majority, for
+the spine-head volumes of step 7). ``knossos_ml_from_sso`` (kzip export)
+and ``assign_rep_values`` come with the items that use them.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+from scipy import spatial
 
 __all__ = [
     "subfold_from_ix",
@@ -24,6 +25,7 @@ __all__ = [
     "ix_from_subfold_OLD",
     "get_unique_subfold_ixs",
     "surface_samples",
+    "colorcode_vertices",
     "SegmentationBase",
 ]
 
@@ -124,6 +126,37 @@ def surface_samples(
         sel = np.linspace(0, len(samples) - 1, max_nb_samples).astype(np.int64)
         samples = samples[sel]
     return samples
+
+
+def colorcode_vertices(
+    vertices: np.ndarray,
+    rep_coords: np.ndarray,
+    rep_values: np.ndarray,
+    colors: Optional[np.ndarray] = None,
+    nb_cpus: int = 1,
+    k: int = 1,
+    return_color: bool = True,
+) -> np.ndarray:
+    """Map per-location labels to mesh vertices via (k-)nearest neighbor.
+
+    With ``k > 1`` a majority vote over the k nearest rep coords is used.
+    Returns colors (``colors[label]``) or the raw per-vertex labels.
+    """
+    rep_values = np.asarray(rep_values)
+    tree = spatial.cKDTree(np.asarray(rep_coords))
+    _, ixs = tree.query(np.asarray(vertices), k=k, workers=nb_cpus)
+    if k == 1:
+        labels = rep_values[ixs]
+    else:
+        neigh = rep_values[ixs.reshape(len(vertices), k)]
+        labels = np.array(
+            [np.bincount(row.astype(np.int64)).argmax() for row in neigh],
+            dtype=rep_values.dtype,
+        )
+    if not return_color or colors is None:
+        return labels
+    colors = np.asarray(colors)
+    return colors[labels]
 
 
 class SegmentationBase:

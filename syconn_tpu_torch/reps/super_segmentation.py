@@ -20,9 +20,9 @@ same arrays under its own name (``backend/bst.py``). SV graphs are the
 port's ``{"edges", "nodes"}`` dicts (``io/graph.py``); the file keeps the
 JAX package's format, a pickled list of (sv, sv) edges.
 
-The view, rendering, prediction and kzip export methods need the renderer
-and the point-model drivers of later steps; they raise
-``NotImplementedError`` naming their ROADMAP item.
+The point-model predictions and the cell helpers of steps 7-9 are here;
+the view, rendering and kzip export methods raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -41,7 +41,6 @@ from .segmentation import SegmentationDataset, SegmentationObject
 __all__ = ["SuperSegmentationObject", "SuperSegmentationDataset", "save_dataset_deep"]
 
 _NO_VIEWS = ("views and rendering are not ported yet: ROADMAP Queue 1, item 9 (views)")
-_NO_STEPS_7_9 = ("cell predictions (steps 7-9) are not ported yet: ROADMAP Queue 1, item 8")
 _NO_KZIP = ("kzip export of cells is not ported yet: ROADMAP Queue 1, item 12 (tail)")
 
 
@@ -363,25 +362,91 @@ class SuperSegmentationObject(SegmentationBase):
         return self.lookup_in_attribute_dict("celltype_cnn_e3_certainty")
 
     def predict_celltype(self, *args, **kw):
-        raise NotImplementedError(_NO_STEPS_7_9)
+        """The cell type of this cell by the celltype point net
+        (``device`` keyword: None means the CUDA card)."""
+        from ..inference.points import predict_celltype_sso
 
-    def semseg_for_coords(self, *args, **kw):
-        raise NotImplementedError(_NO_STEPS_7_9)
+        return predict_celltype_sso(self, *args, **kw)
 
-    def axoness_for_coords(self, *args, **kw):
-        raise NotImplementedError(_NO_STEPS_7_9)
+    def semseg_for_coords(self, coords_vx, semseg_key: str = "axoness", **kw):
+        from .super_segmentation_helper import semseg_for_coords
 
-    def shortestpath2soma(self, *args, **kw):
-        raise NotImplementedError(_NO_STEPS_7_9)
+        return semseg_for_coords(self, coords_vx, semseg_key=semseg_key, **kw)
 
-    def syn_sign_ratio(self, *args, **kw):
-        raise NotImplementedError(_NO_STEPS_7_9)
+    def axoness_for_coords(self, coords_vx, **kw):
+        return self.semseg_for_coords(coords_vx, semseg_key="axoness", **kw)
 
-    def get_spine_compartments(self, *args, **kw):
-        raise NotImplementedError(_NO_STEPS_7_9)
+    def shortestpath2soma(self, coords_vx, **kw):
+        from .super_segmentation_helper import shortestpath2soma
 
-    def compartmentalize_mesh(self, *args, **kw):
-        raise NotImplementedError(_NO_STEPS_7_9)
+        return shortestpath2soma(self, coords_vx, **kw)
+
+    def syn_sign_ratio(self, **kw) -> float:
+        from .super_segmentation_helper import syn_sign_ratio_celltype
+
+        return syn_sign_ratio_celltype(self, **kw)
+
+    def get_spine_compartments(
+        self,
+        semseg_key: str = "spiness",
+        k: int = 1,
+        min_spine_cc_size: Optional[int] = None,
+        dest_folder: Optional[str] = None,
+    ):
+        """Connected components of the vertex spine predictions: vertices
+        are linked within ``min_edge_dist_spine_graph`` nm, edges between
+        differently labeled vertices are cut, and the same-label components
+        of at least ``min_spine_cc_size`` vertices yield per-spine locations.
+
+        Returns (neck_coords_vx, neck_sizes, head_coords_vx, head_sizes).
+        """
+        from scipy import sparse, spatial
+        from scipy.sparse.csgraph import connected_components as _cc
+
+        cfg = self.config
+        if min_spine_cc_size is None:
+            min_spine_cc_size = int(cfg["spines"]["min_spine_cc_size"])
+        max_dist = float(cfg["spines"]["min_edge_dist_spine_graph"])
+        labels = np.asarray(self.lookup_in_attribute_dict(f"{semseg_key}_vertex_labels", []))
+        mesh = self.load_mesh("sv")
+        verts = np.asarray(mesh[1], np.float64).reshape(-1, 3)
+        empty = (np.zeros((0, 3), np.uint64), np.zeros(0, np.int64))
+        if len(verts) == 0 or len(labels) != len(verts):
+            return empty[0], empty[1], empty[0].copy(), empty[1].copy()
+        tree = spatial.cKDTree(verts)
+        pairs = tree.query_pairs(max_dist, output_type="ndarray")
+        if len(pairs):
+            pairs = pairs[labels[pairs[:, 0]] == labels[pairs[:, 1]]]
+        n = len(verts)
+        g = sparse.coo_matrix((np.ones(len(pairs), np.int8), (pairs[:, 0], pairs[:, 1])),
+                              shape=(n, n))
+        n_cc, cc = _cc(g.tocsr(), directed=False)
+        sizes = np.bincount(cc, minlength=n_cc)
+        scale = np.asarray(self.scaling, np.float64)
+        out = {0: ([], []), 1: ([], [])}  # neck, head
+        for c in np.flatnonzero(sizes >= min_spine_cc_size):
+            sel = cc == c
+            lab = int(labels[np.flatnonzero(sel)[0]])
+            if lab not in out:
+                continue
+            out[lab][0].append(verts[sel].mean(axis=0) / scale)
+            out[lab][1].append(int(sel.sum()))
+        neck_c = np.asarray(out[0][0], np.float64).reshape(-1, 3).astype(np.uint64)
+        head_c = np.asarray(out[1][0], np.float64).reshape(-1, 3).astype(np.uint64)
+        neck_s = np.asarray(out[0][1], np.int64)
+        head_s = np.asarray(out[1][1], np.int64)
+        if dest_folder is not None:
+            os.makedirs(dest_folder, exist_ok=True)
+            np.save(f"{dest_folder}/neck_coords_ssv{self.id}_k{k}_{semseg_key}_"
+                    f"ccsize{min_spine_cc_size}.npy", neck_c)
+            np.save(f"{dest_folder}/head_coords_ssv{self.id}_k{k}_{semseg_key}_"
+                    f"ccsize{min_spine_cc_size}.npy", head_c)
+        return neck_c, neck_s, head_c, head_s
+
+    def compartmentalize_mesh(self, semseg_key: str = "axoness"):
+        from ..proc.meshes import compartmentalize_mesh
+
+        return compartmentalize_mesh(self, semseg_key=semseg_key)
 
     def predict_celltype_multiview(self, *args, **kw):
         raise NotImplementedError(_NO_VIEWS)

@@ -189,12 +189,14 @@ def test_config_driven_datasets_equal_jax(tmp_path, jax_run, seg_resident):
     """``run_syn_generation`` up to ``extract_contact_sites`` in a port
     working directory with the JAX run's configuration: the 'cs' and 'syn'
     datasets (numpy caches, per-shard attribute dicts, syn voxel lists) and
-    label volumes equal the JAX package's, streaming and resident."""
+    label volumes equal the JAX package's, streaming and resident. The whole
+    run (all stages) then writes ``syn_ssv``."""
     from syconn_tpu_torch.exec.exec_syns import run_syn_generation
     from syconn_tpu_torch.handler.config import generate_default_conf
     from syconn_tpu_torch.io import resident
     from syconn_tpu_torch.io.chunked import ChunkedVolume
     from syconn_tpu_torch.reps.segmentation import SegmentationDataset
+    from syconn_tpu_torch.reps.super_segmentation import SuperSegmentationDataset
 
     wd = str(tmp_path / "wd")
     generate_default_conf(wd, scaling=(10, 10, 20), key_value_pairs=CONF)
@@ -209,8 +211,6 @@ def test_config_driven_datasets_equal_jax(tmp_path, jax_run, seg_resident):
                                      boundary=SH, chunk_shape=(64, 64, 64)).save_raw(data)
             if seg_resident:
                 assert resident.put(cfg.kd_seg_path, "seg", seg, device="cpu")
-            with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-                run_syn_generation(chunk_size=CHUNK, device="cpu")
             res = run_syn_generation(chunk_size=CHUNK, until="extract_contact_sites",
                                      device="cpu")
             sd = SegmentationDataset("syn")
@@ -225,3 +225,16 @@ def test_config_driven_datasets_equal_jax(tmp_path, jax_run, seg_resident):
         got = ChunkedVolume.open(os.path.join(wd, "knossosdatasets", f"{name}_seg"))
         assert np.array_equal(got.load_seg(size=SH), jax_run[f"{name}_seg"])
     assert os.path.isfile(os.path.join(wd, ".stepcache", "cs_extract", "__complete__"))
+    # the whole run (every stage, as the JAX function runs them) with the two
+    # cubes as two cells writes one syn_ssv between them
+    with port_wd(wd):
+        ssd = SuperSegmentationDataset(working_dir=wd, sv_mapping={7: [7], 9: [9]}, create=True)
+        ssd.build_sv2ssv_index()
+        whole = run_syn_generation(chunk_size=CHUNK, overwrite=True, device="cpu")
+        sd = SegmentationDataset("syn_ssv")
+        assert whole["n_syn_ssv"] == len(sd.ids) == 1
+        assert sd.load_numpy_data("neuron_partners").tolist() == [[7, 9]]
+        assert sd.load_numpy_data("syn_sign").tolist() == [1]
+        assert 0 <= sd.load_numpy_data("syn_prob")[0] <= 1
+        assert ssd.get_super_segmentation_object(9).lookup_in_attribute_dict(
+            "syn_ssv").tolist() == [1]

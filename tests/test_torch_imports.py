@@ -1,5 +1,6 @@
-"""The port imports nothing of JAX, flax, msgpack, PyYAML, networkx or the JAX
-package, and its entry points refuse to run silently on the CPU."""
+"""The port imports nothing of JAX, flax, msgpack, PyYAML, networkx,
+scikit-learn or the JAX package, and its entry points refuse to run silently
+on the CPU."""
 
 import os
 import pkgutil
@@ -15,7 +16,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
 for name in ("jax", "jaxlib", "flax", "msgpack", "syconn_tpu", "zstandard", "yaml", "h5py",
-             "tqdm", "networkx"):
+             "tqdm", "networkx", "sklearn"):
     sys.modules[name] = None
 sys.path.insert(0, {root!r})
 import syconn_tpu_torch
@@ -24,7 +25,8 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 bad = [m for m in sys.modules
-       if m.split(".")[0] in ("jax", "flax", "msgpack", "syconn_tpu", "h5py", "tqdm", "networkx")
+       if m.split(".")[0] in ("jax", "flax", "msgpack", "syconn_tpu", "h5py", "tqdm", "networkx",
+                              "sklearn")
        and sys.modules[m] is not None]
 assert not bad, bad
 print(len(names))
@@ -38,7 +40,7 @@ def test_port_imports_without_jax_flax_msgpack_or_reference():
     import syconn_tpu_torch
 
     n = len(list(pkgutil.walk_packages(syconn_tpu_torch.__path__, "syconn_tpu_torch.")))
-    assert int(out.stdout.strip().splitlines()[-1]) == n >= 72
+    assert int(out.stdout.strip().splitlines()[-1]) == n >= 75
 
 
 def test_entry_points_without_device_raise(monkeypatch, tmp_path):
@@ -168,16 +170,21 @@ def test_step2_entry_points_without_device_raise(monkeypatch, tmp_path):
 
 
 def test_config_driven_entry_points_without_device_raise(monkeypatch, tmp_path):
-    """The working-directory entry points of steps 1-5 and 6a: CUDA or
-    ``device="cpu"``."""
+    """The working-directory entry points of steps 1-9 and the export: CUDA
+    or ``device="cpu"``."""
     from _torch_helpers import port_wd
     from syconn_tpu_torch.exec.exec_dense_prediction import predict_cellorganelles
     from syconn_tpu_torch.exec.exec_inference import (run_astrocyte_prediction,
                                                       run_astrocyte_prediction_pts,
-                                                      run_astrocyte_splitting)
+                                                      run_astrocyte_splitting, run_cell_embedding,
+                                                      run_celltype_prediction,
+                                                      run_morphology_embedding,
+                                                      run_semsegaxoness_prediction,
+                                                      run_semsegspiness_prediction)
     from syconn_tpu_torch.exec.exec_init import init_cell_subcell_sds, run_create_neuron_ssd
     from syconn_tpu_torch.exec.exec_skeleton import run_skeleton_generation
-    from syconn_tpu_torch.exec.exec_syns import run_syn_generation
+    from syconn_tpu_torch.exec.exec_syns import (run_cs_ssv_generation, run_matrix_export,
+                                                 run_spinehead_volume_calc, run_syn_generation)
     from syconn_tpu_torch.extraction.cs_extraction import extract_contact_sites
     from syconn_tpu_torch.handler.config import generate_default_conf
     from syconn_tpu_torch.io.chunked import ChunkedVolume
@@ -204,7 +211,16 @@ def test_config_driven_entry_points_without_device_raise(monkeypatch, tmp_path):
                  lambda **kw: run_astrocyte_prediction(**kw),
                  lambda **kw: run_astrocyte_splitting(**kw),
                  lambda **kw: run_create_neuron_ssd(**kw),
-                 lambda **kw: run_skeleton_generation(cube_size=(32, 32, 16), **kw)]
+                 lambda **kw: run_skeleton_generation(cube_size=(32, 32, 16), **kw),
+                 lambda **kw: run_syn_generation(chunk_size=(32, 32, 16), **kw),
+                 lambda **kw: run_cs_ssv_generation(**kw),
+                 lambda **kw: run_semsegaxoness_prediction(**kw),
+                 lambda **kw: run_semsegspiness_prediction(**kw),
+                 lambda **kw: run_spinehead_volume_calc(**kw),
+                 lambda **kw: run_morphology_embedding(**kw),
+                 lambda **kw: run_cell_embedding(**kw),
+                 lambda **kw: run_celltype_prediction(**kw),
+                 lambda **kw: run_matrix_export(**kw)]
         for call in calls:
             for kw in ({}, {"device": "cuda"}):
                 with pytest.raises(RuntimeError, match="CUDA"):

@@ -430,3 +430,78 @@ def test_point_net_card_matches_cpu(dev, name):
     rel = (got - ref).abs() / ref.abs().clamp_min(1e-2)
     assert bool(torch.isfinite(got).all()) and float(rel.median()) < 3e-2
     assert float((got.argmax(-1) != ref.argmax(-1)).float().mean()) < 3e-3
+
+
+def _cells_wd(root, n_cells=3):
+    """A working directory of ``n_cells`` cells: a surface-nets bar per cell
+    as its mesh and a chain skeleton along it."""
+    import os
+
+    from syconn_tpu_torch.backend import MeshStorage, SkeletonStorage
+    from syconn_tpu_torch.handler.config import generate_default_conf
+    from syconn_tpu_torch.mesh.surface_nets import surface_net_mesh
+    from syconn_tpu_torch.reps.super_segmentation import SuperSegmentationDataset
+
+    wd = os.path.join(root, "wd")
+    generate_default_conf(wd, scaling=(10, 10, 20))
+    ids = [3 + 4 * i for i in range(n_cells)]
+    ssd = SuperSegmentationDataset(working_dir=wd, sv_mapping={i: [i] for i in ids}, create=True)
+    rng = np.random.default_rng(0)
+    for i in ids:
+        sso = ssd.get_super_segmentation_object(i)
+        mask = np.zeros((90, 40, 20), bool)
+        mask[5:85, 12:26, 5:13] = True
+        mask[rng.integers(10, 80):, 5:35, 8:10] = True  # a side branch
+        ms = MeshStorage(sso.mesh_path("sv"), read_only=False)
+        ms[i] = list(surface_net_mesh(mask, offset=(0, 0, 0), scale=(10, 10, 20)))
+        ms.push()
+        n = 16
+        nodes = np.stack([np.linspace(8, 82, n), np.full(n, 19), np.full(n, 9)], 1)
+        ss = SkeletonStorage(sso.skeleton_path, read_only=False)
+        ss[i] = {"nodes": nodes.astype(np.float32),
+                 "edges": np.stack([np.arange(n - 1), np.arange(1, n)], 1).astype(np.int64),
+                 "diameters": np.ones(n, np.float32)}
+        ss.push()
+    return wd, ids
+
+
+def test_steps_7_to_9_predictions_card_match_cpu(dev, tmp_path):
+    """The step 7-9 predictions on the card against the same functions on
+    the CPU in a copy of a toy directory: node and vertex labels of axoness and
+    spiness agree on >= 0.98, cell types equal, celltype logits within the
+    dense budget, embeddings within 1e-3."""
+    import shutil
+
+    from _torch_helpers import port_wd
+    from syconn_tpu_torch.inference import points
+    from syconn_tpu_torch.reps.super_segmentation import SuperSegmentationDataset
+
+    wd, ids = _cells_wd(str(tmp_path / "card"))
+    wc = str(tmp_path / "cpu")
+    shutil.copytree(wd, wc)
+    out = {}
+    for w, d in ((wd, dev), (wc, "cpu")):
+        with port_wd(w) as cfg:
+            points.predict_compartments_ssd(skel_key="axoness", n_classes=3, device=d)
+            points.predict_compartments_ssd(skel_key="spiness", n_classes=4,
+                                            mpath=cfg.mpath_spiness, device=d)
+            points.infere_cell_morphology_ssd(device=d)
+            points.predict_celltype_ssd(device=d)
+        ssd = SuperSegmentationDataset(working_dir=w)
+        cells = {}
+        for i in ids:
+            sso = ssd.get_super_segmentation_object(i)
+            sso.load_attr_dict()
+            sso.load_skeleton()
+            cells[i] = (dict(sso.attr_dict), dict(sso.skeleton))
+        out[w] = cells
+    for i in ids:
+        (ad, sk), (ac, skc) = out[wd][i], out[wc][i]
+        for key in ("axoness", "spiness"):
+            assert np.mean(sk[key] == skc[key]) >= 0.98, key
+            assert np.mean(ad[f"{key}_vertex_labels"] == ac[f"{key}_vertex_labels"]) >= 0.98
+        assert ad["celltype_cnn_e3"] == ac["celltype_cnn_e3"]
+        lg, lr = torch.from_numpy(ad["celltype_cnn_e3_probas"]), torch.from_numpy(
+            ac["celltype_cnn_e3_probas"])
+        assert float(((lg - lr).abs() / lr.abs().clamp_min(1e-2)).median()) < 3e-2
+        np.testing.assert_allclose(ad["latent_morph"], ac["latent_morph"], rtol=0, atol=1e-3)

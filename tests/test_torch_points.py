@@ -5,8 +5,8 @@ centres, padding, empty clouds), ``certainty_estimate`` and
 ``append_global_scalars`` equal exactly; ``ContextPipeline`` on the cases
 of tests/test_points_pipeline.py (batching across items, empty items)
 gives the same outputs, dispatches and rows; ``ContextPredictor`` pads
-short batches and needs the card unless asked for the CPU; the drivers of
-steps 7-9 raise until they are ported."""
+short batches and needs the card unless asked for the CPU; so do the
+predictions of steps 7-9, which run on a one-cell working directory."""
 
 import numpy as np
 import pytest
@@ -165,8 +165,83 @@ def test_context_predictor_pads_and_needs_a_device(monkeypatch):
     assert pred.predict(ctx[:0]) is None
 
 
-def test_steps_7_to_9_drivers_raise():
-    for fn in (tpoints.predict_celltype_ssd, tpoints.predict_compartments_ssd,
-               tpoints.infere_cell_morphology_ssd, tpoints.predict_celltype_sso):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            fn()
+def _one_cell_wd(tmp_path):
+    """A working directory with one cell: a surface-nets blob as its mesh
+    and a chain skeleton through it."""
+    from syconn_tpu_torch.backend import MeshStorage, SkeletonStorage
+    from syconn_tpu_torch.handler.config import generate_default_conf
+    from syconn_tpu_torch.mesh.surface_nets import surface_net_mesh
+    from syconn_tpu_torch.reps.super_segmentation import SuperSegmentationDataset
+
+    wd = str(tmp_path / "wd")
+    generate_default_conf(wd, scaling=(10, 10, 20))
+    ssd = SuperSegmentationDataset(working_dir=wd, sv_mapping={3: [3]}, create=True)
+    sso = ssd.get_super_segmentation_object(3)
+    mask = np.zeros((60, 30, 16), bool)
+    mask[5:55, 8:22, 4:12] = True
+    ms = MeshStorage(sso.mesh_path("sv"), read_only=False)
+    ms[3] = list(surface_net_mesh(mask, scale=(10, 10, 20)))
+    ms.push()
+    n = 10
+    nodes = np.stack([np.linspace(8, 52, n), np.full(n, 15), np.full(n, 8)], 1)
+    ss = SkeletonStorage(sso.skeleton_path, read_only=False)
+    ss[3] = {"nodes": nodes.astype(np.float32),
+             "edges": np.stack([np.arange(n - 1), np.arange(1, n)], 1).astype(np.int64),
+             "diameters": np.ones(n, np.float32)}
+    ss.push()
+    return wd
+
+
+def test_steps_7_to_9_drivers_raise(monkeypatch, tmp_path):
+    """Without a card the four step 7-9 functions raise unless given
+    ``device="cpu"``; on the CPU each writes its outputs."""
+    from _torch_helpers import port_wd
+    from syconn_tpu_torch.reps.super_segmentation import SuperSegmentationDataset
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    wd = _one_cell_wd(tmp_path)
+    with port_wd(wd):
+        sso = SuperSegmentationDataset(working_dir=wd).get_super_segmentation_object(3)
+        calls = [tpoints.predict_celltype_ssd, tpoints.predict_compartments_ssd,
+                 tpoints.infere_cell_morphology_ssd,
+                 lambda **kw: tpoints.predict_celltype_sso(sso, **kw)]
+        for fn in calls:
+            for kw in ({}, {"device": "cuda"}):
+                with pytest.raises(RuntimeError, match="CUDA"):
+                    fn(**kw)
+        stats = {}
+        assert tpoints.predict_compartments_ssd(device="cpu", stats=stats) == 1
+        assert stats["contexts"] > 0 and stats["dispatches"] > 0
+        assert tpoints.infere_cell_morphology_ssd(device="cpu") == 1
+        assert tpoints.predict_celltype_ssd(device="cpu") == 1
+        ct = tpoints.predict_celltype_sso(sso, device="cpu")
+    assert 0 <= ct < 8
+    ad = SuperSegmentationDataset(working_dir=wd).get_super_segmentation_object(3)
+    ad.load_attr_dict()
+    assert ad.load_skeleton() and len(ad.skeleton["axoness"]) == 10
+    assert len(ad.attr_dict["axoness_vertex_labels"]) * 3 == len(ad.load_mesh("sv")[1])
+    assert ad.attr_dict["latent_morph"].shape == (10,)
+    assert 0 <= ad.attr_dict["celltype_cnn_e3_certainty"] <= 1
+
+
+def test_view_route_raises_item_9(tmp_path):
+    """``use_point_models: False`` (the multi-view models) needs the
+    renderer; the point entry points name its ROADMAP item."""
+    from _torch_helpers import port_wd
+    from syconn_tpu_torch.exec import exec_inference
+    from syconn_tpu_torch.handler.config import generate_default_conf
+    from syconn_tpu_torch.reps import super_segmentation_helper as ssh
+
+    wd = str(tmp_path / "wd")
+    generate_default_conf(wd, scaling=(10, 10, 20), key_value_pairs=[("use_point_models", False)])
+    with port_wd(wd) as cfg:
+        assert not cfg.use_point_models
+        for fn in (exec_inference.run_celltype_prediction,
+                   exec_inference.run_semsegaxoness_prediction,
+                   exec_inference.run_morphology_embedding):
+            with pytest.raises(NotImplementedError, match="item 9"):
+                fn(device="cpu")
+    for fn in (ssh.celltype_of_sso_nocache, ssh.semseg_of_sso_nocache,
+               ssh.view_embedding_of_sso_nocache, ssh.gliapred_sso_nocache):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            fn(None)

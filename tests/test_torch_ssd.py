@@ -12,6 +12,7 @@ import pickle
 
 import numpy as np
 import pytest
+import torch
 
 nx = pytest.importorskip("networkx")
 
@@ -100,7 +101,7 @@ def test_graph_from_coords_equals_networkx():
         assert got.is_connected() == force
 
 
-def test_sso_sv_graph_file_and_later_methods(tmp_path):
+def test_sso_sv_graph_file_and_later_methods(tmp_path, monkeypatch):
     from syconn_tpu.handler.basics import load_pkl2obj
     from syconn_tpu_torch.handler.config import generate_default_conf
     from syconn_tpu_torch.reps.super_segmentation import (SuperSegmentationDataset,
@@ -122,7 +123,13 @@ def test_sso_sv_graph_file_and_later_methods(tmp_path):
     assert again.sv_ids.tolist() == [3, 7, 9]
     ssd.build_sv2ssv_index()
     assert ssd.sv2ssv_ids(np.array([9, 3], np.uint64)).tolist() == [3, 3]
-    for meth, item in (("predict_celltype", "item 8"), ("render_views", "item 9"),
-                       ("export2kzip", "item 12"), ("get_spine_compartments", "item 8")):
+    for meth, item in (("render_views", "item 9"), ("export2kzip", "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             getattr(sso, meth)()
+    # steps 7-9 are ported: the cell type runs the celltype net (here the
+    # card is hidden, so it asks for one), and a cell without spine labels
+    # has no spine compartments
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sso.predict_celltype()
+    assert all(len(x) == 0 for x in sso.get_spine_compartments())
