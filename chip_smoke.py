@@ -68,7 +68,19 @@ Phases, each failing the run on error:
  11. the morphology (``phase_slice_morphology``): steps 7-9 and the export
      (axoness, spiness, spine-head volumes, the embedding, cell types, the
      matrix), the outputs checked per cell and the four point-net
-     predictions card against CPU on 10 cells.
+     predictions card against CPU on 10 cells;
+ 12. the views (``phase_views``, after the point nets): the splat renderer
+     on a seeded blob mesh at 64 locations, at the inference functions' 128x64 and the
+     config's 256x128 (device and wall ms per chunk of 16 locations,
+     frames/s, peak memory), card against CPU (depth and index views
+     equal), and the five view nets at the inference functions' widths (forward ms a
+     batch of 8, logits card against CPU within the dense budget);
+ 13. the view route (``phase_slice_views``, last): steps 7-9 with
+     ``use_point_models: False`` on a copy of the pipeline's cells
+     (rendering, the axoness semseg with the per-location average, the
+     embedding, cell types, the astrocyte components' views and glia
+     probabilities), per-stage seconds and busy shares, the outputs checked
+     per cell and card against CPU on 5 cells.
 
 Phase 4's reference check also holds the organelles U-Net, layer by layer
 and end to end, to its own budget (``ORG_BUDGET``).
@@ -1439,6 +1451,125 @@ def phase_points(dev):
     return out
 
 
+VIEW_NETS = {  # task -> (class, kwargs, input: a view stack or single views)
+    "celltype": ("MultiViewCMN", dict(n_classes=8, widths=(16, 32, 64)), "stack"),
+    "tnet": ("TripletCMN", dict(embed_dim=10, widths=(16, 32, 64)), "stack"),
+    "axoness_semseg": ("ViewSemSegNet", dict(n_classes=3, widths=(16, 32, 64)), "single"),
+    "glia": ("MultiViewCMN", dict(n_classes=2, widths=(16, 32, 64)), "stack"),
+    "axoness_views": ("MultiViewCMN", dict(n_classes=3, widths=(16, 32, 64)), "stack"),
+}
+VIEW_SIZES = {"inference": ((128, 64), 8000.0), "config": ((256, 128), 8000.0)}
+
+
+def _view_net(task):
+    from syconn_tpu_torch.models import cmn
+    from syconn_tpu_torch.models.io import init_model_params
+
+    cls, kw, _ = VIEW_NETS[task]
+    model = getattr(cmn, cls)(**kw)
+    init_model_params(model, seed=0)
+    return model.eval()
+
+
+def phase_views(dev):
+    """The renderer and the view nets on the card. The surface-nets mesh of
+    the seeded blob is rendered at 64 of its vertices (PCA rotations from
+    ``calc_rot_matrices``) at the inference functions' 128x64 and the config's 256x128,
+    2 views a location: device ms per chunk of 16 locations (``cuda_ms`` of
+    one chunk's transform, scatters and image), wall ms per chunk of a whole
+    ``SplatRenderer.render`` (transfers and readback included), frames/s,
+    vertices, peak bytes and a bytes bound (each vertex read once a frame,
+    the z-buffer and index image written and read twice); the same frames
+    rendered on the CPU: depth and index views equal. Each view net at the
+    inference functions' widths (seed-initialised, as ``views.allow_untrained_models``
+    runs them) on batches of 8 of the inference functions' views: forward ms (median
+    ``cuda_ms``), logits card against CPU within the dense budget (median
+    relative error < 3e-2, argmax flips < 2e-2 at random init), per-location
+    embeddings unit-norm. Returns (net -> forward ms a batch, view size ->
+    device ms a frame)."""
+    import numpy as np
+    import torch
+
+    from syconn_tpu_torch.inference.views_infer import views_to_model_input
+    from syconn_tpu_torch.mesh.surface_nets import surface_net_mesh
+    from syconn_tpu_torch.proc.meshes import calc_rot_matrices
+    from syconn_tpu_torch.render.raster import (SplatRenderer, _render_chunk, fused_columns,
+                                                view_rotations)
+
+    _, verts, _ = surface_net_mesh(_blob_mask(), scale=(10, 10, 20))
+    verts = verts.reshape(-1, 3).astype(np.float32)
+    locs = verts[np.random.default_rng(7).choice(len(verts), 64, replace=False)]
+    frame_ms, views_in = {}, None
+    for size, (ws, cw) in VIEW_SIZES.items():
+        t0 = time.perf_counter()
+        rots = calc_rot_matrices(locs, verts, cw)
+        t_rot = time.perf_counter() - t0
+        r = SplatRenderer(ws=ws, nb_views=2, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        st = {}
+        depth, index = r.render(verts, locs, rots, cw, stats=st)
+        peak = torch.cuda.max_memory_allocated() - base
+        t0 = time.perf_counter()
+        r.render(verts, locs, rots, cw)
+        wall_chunk = (time.perf_counter() - t0) * 1e3 / 4
+        vt = torch.from_numpy(verts).to(dev)
+        cb = torch.from_numpy(locs[:16]).to(dev)
+        rb = torch.from_numpy(np.stack([view_rotations(x, 2) for x in rots[:16]])).to(dev)
+        window = torch.tensor(cw, dtype=torch.float32, device=dev)
+        fused = torch.from_numpy(fused_columns(2)).to(dev)
+        dev_chunk = cuda_ms(lambda: _render_chunk(vt, cb, rb, window, ws, fused),
+                            warmup=2, reps=5, inner=4)
+        frame_ms[size] = dev_chunk / 32
+        d_cpu, i_cpu = SplatRenderer(ws=ws, nb_views=2, device="cpu").render(verts, locs, rots, cw)
+        if not (np.array_equal(depth, d_cpu) and np.array_equal(index, i_cpu)):
+            raise AssertionError(f"views {size}: card != CPU on "
+                                 f"{int((depth != d_cpu).sum())} depth and "
+                                 f"{int((index != i_cpu).sum())} index pixels")
+        fg = float((index >= 0).mean())
+        if fg <= 0:
+            raise AssertionError(f"views {size}: nothing rendered")
+        frames = 32
+        bytes_moved = frames * (len(verts) * 12 + ws[0] * ws[1] * (4 * 2 + 4 * 2 + 1 + 4))
+        log(f"views forward render {size} " + json.dumps(dict(
+            ws=list(ws), comp_window=cw, locations=64, vertices=int(len(verts)),
+            device_ms_per_chunk16=dev_chunk, wall_ms_per_chunk16=wall_chunk,
+            frames_per_s=frames / (dev_chunk / 1e3), bound_ms_per_chunk16=bytes_moved / PEAK_BYTES
+            * 1e3, bound_by="bytes", rotations_s=t_rot, peak_bytes=int(peak),
+            foreground_share=fg, card_equals_cpu=True)))
+        if size == "inference":
+            v4 = np.full((64, 2, 4) + ws, 255, np.uint8)
+            v4[:, :, 0] = depth
+            views_in = views_to_model_input(v4).astype(np.float32)
+    out = {}
+    for task, (_, _, kind) in VIEW_NETS.items():
+        model = _view_net(task)
+        x_cpu = torch.from_numpy(np.ascontiguousarray(
+            views_in[:8] if kind == "stack" else views_in[:4].reshape((8,) + views_in.shape[2:])))
+        with torch.inference_mode():
+            ref = model(x_cpu)
+            model_d = model.to(dev)
+            x = x_cpu.to(dev)
+            torch.cuda.reset_peak_memory_stats()
+            got = model_d(x).float().cpu()
+            peak = torch.cuda.max_memory_allocated()
+            fwd = cuda_ms(lambda: model_d(x), warmup=2, reps=5, inner=4)
+        rel = (got - ref).abs() / ref.abs().clamp_min(1e-2)
+        med = float(rel.median())
+        flips = float((got.argmax(-1) != ref.argmax(-1)).float().mean())
+        if not bool(torch.isfinite(got).all()) or med >= 3e-2 or flips >= 2e-2:
+            raise AssertionError(f"views {task}: card vs CPU median rel {med:.3g}, argmax "
+                                 f"flips {flips:.3g}")
+        if task == "tnet" and float((torch.linalg.vector_norm(got, dim=-1) - 1).abs().max()) > 1e-3:
+            raise AssertionError("views tnet: embeddings not unit-norm")
+        log(f"views forward net {task} " + json.dumps(dict(
+            batch=8, input=list(x.shape), cuda_ms=fwd, peak_bytes=int(peak), median_rel=med,
+            argmax_flips=flips, max_abs_err=float((got - ref).abs().max()))))
+        out[task] = fwd
+    return out, frame_ms
+
+
 def _component_sets(g):
     from syconn_tpu_torch.proc.graphs import component_lists
 
@@ -1925,6 +2056,202 @@ def phase_slice_morphology(dev, work: str, forward_ms: dict):
     global_params.wd = None
 
 
+VIEW_CELLS_CPU = 5
+
+
+def phase_slice_views(dev, work: str, forward_ms: dict, frame_ms: dict):
+    """The view route of steps 7-9 (``start.py --use_views``) on the
+    pipeline's cells, in a working directory with a copy of its datasets and
+    of its configuration with ``use_point_models: False``,
+    ``views.allow_untrained_models: True`` (the view nets seed-initialised
+    and persisted at first use) and ``compartments.view_scalar_avg: True``:
+    ``run_neuron_rendering()``, ``run_semsegaxoness_prediction()``,
+    ``run_morphology_embedding()``, ``run_celltype_prediction()``, then
+    ``run_astrocyte_rendering()`` and ``gliapred_sso_views`` on the
+    ``gliapred`` components. Per stage: seconds, cells, locations, frames,
+    render seconds and calls, forward dispatches and the card's busy share
+    (rendered frames x device ms a frame + dispatches x the mean forward ms
+    of the stage's nets, over the wall); the cell-type stage once more under
+    ``torch.profiler``: its device time over its wall. Checks: every cell has
+    its stored views (``(id, "raw")``, 4 channels at the config's 256x128) and
+    ``view_locations``, vertex labels in [0, 3] per mesh vertex, node labels in
+    [0, 3], an embedding of norm <= 1 (the mean of unit-norm ones), a cell type
+    in [0, 8) with its certainty in [0, 1], glia probabilities in [0, 1]. Card
+    against CPU on ``VIEW_CELLS_CPU`` cells in a copy of the datasets: stored
+    and index views equal, vertex and node labels agree >= ``LABEL_AGREEMENT``,
+    celltype logits within the dense budget, embeddings within ``EMBED_ATOL``.
+    The view route launches none of the four kernels; the counts are read after
+    it.
+    """
+    import numpy as np
+    import torch
+
+    from syconn_tpu_torch import global_params
+    from syconn_tpu_torch.exec import exec_inference, exec_render
+    from syconn_tpu_torch.handler.config import generate_default_conf
+    from syconn_tpu_torch.inference import views_infer
+    from syconn_tpu_torch.ops.conv3d import LAUNCHES, reset_launch_counts
+    from syconn_tpu_torch.render import views as rviews
+    from syconn_tpu_torch.reps.super_segmentation import SuperSegmentationDataset
+    from syconn_tpu_torch.reps.views import ViewContainer
+
+    src = os.path.join(work, "pipeline_wd")
+    wd = os.path.join(work, "views_wd")
+    generate_default_conf(wd, scaling=(10, 10, 20), key_value_pairs=[
+        ("syntype_avail", True), ("use_point_models", False),
+        ("views", {"allow_untrained_models": True}), ("compartments", {"view_scalar_avg": True})])
+    for d in ("ssv_0", "svs_0", "mis_0", "vcs_0", "syn_ssvs_0"):
+        if os.path.isdir(os.path.join(src, d)):
+            shutil.copytree(os.path.join(src, d), os.path.join(wd, d))
+    global_params.wd = src
+    pruned = global_params.config.pruned_svgraph_path
+    global_params.wd = wd
+    cfg = global_params.config
+    shutil.copy(pruned, cfg.pruned_svgraph_path)
+    if cfg.use_point_models or not cfg["views"]["allow_untrained_models"]:
+        raise AssertionError("views: the configuration did not take the view route")
+    wc = os.path.join(work, "views_wd_cpu")
+    shutil.copytree(wd, wc)
+    ssd = SuperSegmentationDataset(working_dir=wd)
+    ssv_ids = [int(i) for i in ssd.ssv_ids]
+    ws, nv = tuple(cfg["views"]["view_properties"]["ws"]), int(
+        cfg["views"]["view_properties"]["nb_views"])
+    size_of = {(128, 64): "inference", (256, 128): "config"}
+
+    def stage(name, fn, nets, frame_size):
+        torch.cuda.synchronize()
+        st = {}
+        t0 = time.perf_counter()
+        n = fn(device=dev, stats=st)
+        wall = time.perf_counter() - t0
+        dev_ms = st.get("render_frames", 0) * frame_ms[frame_size] + sum(
+            st.get("dispatches", 0) * forward_ms[t] for t in nets) / max(len(nets), 1)
+        log(f"slice views {name} " + json.dumps(dict(
+            seconds=wall, cells=n, locations=st.get("locations", 0),
+            frames=st.get("frames", st.get("render_frames", 0)),
+            render_calls=st.get("render_calls", 0), render_frames=st.get("render_frames", 0),
+            render_seconds=st.get("render_seconds", 0.0), dispatches=st.get("dispatches", 0),
+            forward_seconds=st.get("forward_seconds", 0.0), busy_share=dev_ms / (wall * 1e3))))
+        return st
+
+    reset_launch_counts()
+    stage("run_neuron_rendering", exec_render.run_neuron_rendering, [], size_of[ws])
+    # the semseg and the per-location axoness CMN run in one stage; their
+    # frames are the inference functions' 128x64
+    stage("run_semsegaxoness_prediction", exec_inference.run_semsegaxoness_prediction,
+          ["axoness_semseg", "axoness_views"], "inference")
+    stage("run_morphology_embedding", exec_inference.run_morphology_embedding, ["tnet"],
+          "inference")
+    stage("run_celltype_prediction", exec_inference.run_celltype_prediction, ["celltype"],
+          "inference")
+    # the same stage again under the profiler: the card's own busy time
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        exec_inference.run_celltype_prediction(device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
+    top = [(e.key[:40], round(getattr(e, "self_device_time_total", 0.0) / 1e3, 3), e.count)
+           for e in sorted(events, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:8]]
+    log("slice views profile run_celltype_prediction " + json.dumps(dict(
+        seconds=wall, device_ms=dev_us / 1e3, busy_share=dev_us / 1e3 / (wall * 1e3),
+        top_device_ms=top)))
+    stage("run_astrocyte_rendering", exec_render.run_astrocyte_rendering, [], size_of[ws])
+    gssd = SuperSegmentationDataset(working_dir=wd, version="gliapred")
+    st = {}
+    t0 = time.perf_counter()
+    glia = {int(i): views_infer.gliapred_sso_views(gssd.get_super_segmentation_object(int(i)),
+                                                   device=dev, stats=st) for i in gssd.ssv_ids}
+    wall = time.perf_counter() - t0
+    log("slice views gliapred_sso_views " + json.dumps(dict(
+        seconds=wall, cells=len(glia), locations=st.get("locations", 0),
+        frames=st.get("frames", 0), render_seconds=st.get("render_seconds", 0.0),
+        dispatches=st.get("dispatches", 0), busy_share=(
+            st.get("render_frames", 0) * frame_ms["inference"]
+            + st.get("dispatches", 0) * forward_ms["glia"]) / (wall * 1e3))))
+    torch.cuda.synchronize()
+    log("slice views kernel launches " + json.dumps(dict(LAUNCHES)))
+    if not all(0.0 <= p <= 1.0 for p in glia.values()) or not glia:
+        raise AssertionError("views: glia probabilities outside [0, 1]")
+
+    # outputs per cell
+    ndim = int(cfg["tcmn"]["ndim_embedding"])
+    attrs = _attr_dicts(ssd.path)
+    for i in ssv_ids:
+        sso = ssd.get_super_segmentation_object(i)
+        a = attrs[i]
+        views = ViewContainer(sso.ssv_dir).load_views((i, "raw"))
+        locs = np.asarray(a.get("view_locations", np.zeros((0, 3))))
+        if views is None or views.shape != (len(locs), nv, 4) + ws or len(locs) == 0:
+            raise AssertionError(f"views: SSV {i} lacks its stored views or locations")
+        vl = np.asarray(a.get("axoness_vertex_labels", []))
+        if len(vl) != len(sso.load_mesh("sv")[1]) // 3 or vl.min() < 0 or vl.max() > 3:
+            raise AssertionError(f"views: SSV {i}'s vertex labels are malformed")
+        if sso.load_skeleton():
+            for k in ("axoness", "axoness_avg10000"):
+                lab = np.asarray(sso.skeleton.get(k, []))
+                if len(lab) != len(sso.skeleton["nodes"]) or lab.min() < 0 or lab.max() > 3:
+                    raise AssertionError(f"views: SSV {i}'s node labels {k} are malformed")
+        z = np.asarray(a.get("latent_morph", []))
+        if not (z.shape == (ndim,) and np.isfinite(z).all() and np.linalg.norm(z) <= 1 + 1e-5
+                and 0 <= a.get("celltype_cnn_e3", -1) < 8
+                and 0 <= a["celltype_cnn_e3_certainty"] <= 1):
+            raise AssertionError(f"views: SSV {i}'s cell type or embedding is malformed")
+
+    # card against CPU on a sample, in the copy taken before the first stage
+    shutil.copytree(os.path.join(wd, "models"), os.path.join(wc, "models"))
+    sample = [int(i) for i in np.random.default_rng(41).choice(
+        ssv_ids, size=min(VIEW_CELLS_CPU, len(ssv_ids)), replace=False)]
+    global_params.wd = wc
+    ssd_c = SuperSegmentationDataset(working_dir=wc)
+    agree, rel_med, flips, emb_err, ct_equal = [], [], [], [], 0
+    t0 = time.perf_counter()
+    for i in sample:
+        s_cpu = ssd_c.get_super_segmentation_object(i)
+        v_cpu, l_cpu = rviews.render_sampled_sso(s_cpu, device="cpu")
+        s_card = ssd.get_super_segmentation_object(i)
+        if not (np.array_equal(v_cpu, ViewContainer(s_card.ssv_dir).load_views((i, "raw")))
+                and np.array_equal(l_cpu, attrs[i]["view_locations"])):
+            raise AssertionError(f"views: SSV {i}'s stored views differ from the CPU's")
+        pts = np.asarray(attrs[i]["view_locations"][:4])
+        kw = dict(ws=(128, 64), nb_views=2, comp_window=40960.0)
+        if not np.array_equal(rviews.render_sso_coords_index_views(s_cpu, pts, device="cpu", **kw),
+                              rviews.render_sso_coords_index_views(s_card, pts, device=dev, **kw)):
+            raise AssertionError(f"views: SSV {i}'s index views card != CPU")
+        views_infer.semseg_of_sso_views(s_cpu, device="cpu")
+        views_infer.celltype_of_sso_views(s_cpu, device="cpu")
+        views_infer.view_embedding_of_sso(s_cpu, device="cpu")
+        c = s_cpu.load_attr_dict()
+        a = attrs[i]
+        agree.append(float(np.mean(np.asarray(a["axoness_vertex_labels"]) ==
+                                   np.asarray(c["axoness_vertex_labels"]))))
+        if s_card.load_skeleton() and s_cpu.load_skeleton():
+            agree.append(float(np.mean(s_card.skeleton["axoness"] == s_cpu.skeleton["axoness"])))
+        lg, lr = (torch.from_numpy(np.asarray(x["celltype_cnn_e3_probas"], np.float32))
+                  for x in (a, c))
+        rel_med.append(float(((lg - lr).abs() / lr.abs().clamp_min(1e-2)).median()))
+        flips.append(float((lg.argmax(-1) != lr.argmax(-1)).float().mean()))
+        emb_err.append(float(np.abs(np.asarray(a["latent_morph"]) -
+                                    np.asarray(c["latent_morph"])).max()))
+        ct_equal += int(a["celltype_cnn_e3"] == c["celltype_cnn_e3"])
+    log("slice views card_vs_cpu " + json.dumps(dict(
+        cells=len(sample), views_equal=True, index_views_equal=True,
+        label_agreement_min=min(agree), celltype_equal=ct_equal,
+        celltype_logits_median_rel_max=max(rel_med), celltype_argmax_flips_max=max(flips),
+        embedding_max_abs=max(emb_err), cpu_seconds=time.perf_counter() - t0)))
+    if min(agree) < LABEL_AGREEMENT:
+        raise AssertionError(f"views: card vs CPU label agreement {min(agree)} below "
+                             f"{LABEL_AGREEMENT}")
+    if max(rel_med) >= 3e-2 or max(flips) >= 2e-2:
+        raise AssertionError(f"views: celltype logits card vs CPU median rel {max(rel_med):.3g}, "
+                             f"argmax flips {max(flips):.3g}")
+    if max(emb_err) > EMBED_ATOL:
+        raise AssertionError(f"views: embeddings card vs CPU differ by {max(emb_err):.3g}")
+    global_params.wd = None
+
+
 def main() -> int:
     import torch
 
@@ -1999,6 +2326,9 @@ def main() -> int:
         t_cells = time.perf_counter()
         points = phase_points(dev)
         log(f"points phase {time.perf_counter() - t_cells:.3f} s")
+        t_views = time.perf_counter()
+        view_ms, frame_ms = phase_views(dev)
+        log(f"views phase {time.perf_counter() - t_views:.3f} s")
         t_cells = time.perf_counter()
         cells_launches = phase_slice_cells(dev, work, points["glia_pts"]["forward_ms"])
         for k in REPLACES:
@@ -2013,6 +2343,9 @@ def main() -> int:
         t_morph = time.perf_counter()
         phase_slice_morphology(dev, work, {t: r["forward_ms"] for t, r in points.items()})
         log(f"slice morphology phase {time.perf_counter() - t_morph:.3f} s")
+        t_views = time.perf_counter()
+        phase_slice_views(dev, work, view_ms, frame_ms)
+        log(f"slice views phase {time.perf_counter() - t_views:.3f} s")
     finally:
         resident.clear()
         shutil.rmtree(work, ignore_errors=True)

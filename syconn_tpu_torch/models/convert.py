@@ -9,9 +9,13 @@ Flax names are kept: ``ConvBlock_i/Conv_j/{kernel,bias}``,
   LayerNorm parameters f32, the 1x1x1 head as ``(Cin, Nh)`` + ``(Nh,)`` f32
   — the dtypes the JAX engine casts to before its kernels.
 * :func:`module_state_from_flax` gives the plain modules' state dicts:
-  :class:`UNet3D`'s conv kernels as OIDHW f32, and the point nets'
-  (``models/pointnet.py``) ``Dense`` kernels (in, out) as ``weight``
-  (out, in) f32.
+  :class:`UNet3D`'s conv kernels as OIDHW f32, the view nets'
+  (``models/cmn.py``) 2D ``Conv``/``ConvTranspose`` kernels HWIO as OIHW
+  f32, and ``Dense`` kernels (in, out) as ``weight`` (out, in) f32;
+  ``LayerNorm``/``GroupNorm`` ``scale`` and ``bias`` as they are.
+* :func:`flax_tree_from_module` is its inverse: a module's state as the flax
+  params tree of numpy f32 arrays (what ``models/io.py::save_model``
+  writes).
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-__all__ = ["params_from_flax", "module_state_from_flax", "kernel_taps"]
+__all__ = ["params_from_flax", "module_state_from_flax", "flax_tree_from_module", "kernel_taps"]
 
 
 def kernel_taps(k, device=None) -> torch.Tensor:
@@ -58,13 +62,15 @@ def params_from_flax(tree: dict, device=None) -> dict:
 
 def module_state_from_flax(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
     """flax params tree -> the port module's state dict: conv kernels
-    DHWIO -> OIDHW, dense kernels (in, out) -> (out, in)."""
+    (spatial..., I, O) -> (O, I, spatial...), dense kernels (in, out) ->
+    (out, in)."""
     sd = {}
     for name, p in tree.items():
         key = f"{prefix}{name}"
         if "kernel" in p:
             k = torch.as_tensor(np.asarray(p["kernel"], np.float32))
-            k = k.t() if k.dim() == 2 else k.permute(4, 3, 0, 1, 2)
+            n = k.dim()
+            k = k.permute(n - 1, n - 2, *range(n - 2))
             sd[f"{key}.weight"] = k.contiguous()
             sd[f"{key}.bias"] = torch.as_tensor(np.asarray(p["bias"], np.float32))
         elif "scale" in p:
@@ -74,3 +80,21 @@ def module_state_from_flax(tree: dict, prefix: str = "") -> Dict[str, torch.Tens
             sd.update(module_state_from_flax(p, prefix=f"{key}."))
     return sd
 
+
+
+def flax_tree_from_module(model: torch.nn.Module) -> dict:
+    """The module's state as a flax params tree of numpy f32 arrays, keys in
+    the module's registration order: (O, I, spatial...) ``weight`` ->
+    (spatial..., I, O) ``kernel``; ``scale``/``bias`` as they are."""
+    tree: dict = {}
+    for key, t in model.state_dict().items():
+        *path, leaf = key.split(".")
+        a = t.detach().float().cpu()
+        if leaf == "weight":
+            n = a.dim()
+            a, leaf = a.permute(*range(2, n), 1, 0), "kernel"
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = a.contiguous().numpy()
+    return tree

@@ -3,17 +3,27 @@ flax-msgpack ``params.msgpack`` (counterpart of ``syconn_tpu/models/io.py``).
 
 The packaged weights are read in place, by file path, from the JAX
 package's ``syconn_tpu/models/pretrained/<name>/`` — data, not an import.
+:func:`get_or_init_model` resolves a model as the JAX package does (the
+working-directory model, then the packaged one, then, unless
+``require_trained``, a seed initialisation persisted with
+``{"initialized_only": true, "seed": seed}`` in its meta). The port draws
+that initialisation from a ``torch.Generator`` with flax's default
+initialisers (:func:`init_model_params`), so its values are not the JAX
+package's ``PRNGKey(seed)`` draws; the files it writes are read by the JAX
+package's ``load_model``.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
-from typing import Any, Tuple
+from typing import Any, Callable, Optional, Tuple
 
-from .msgpack_io import msgpack_restore
+from .msgpack_io import msgpack_restore, msgpack_serialize
 
-__all__ = ["load_model", "load_model_meta", "model_exists", "packaged_model_path"]
+__all__ = ["load_model", "load_model_meta", "model_exists", "packaged_model_path",
+           "save_model", "init_model_params", "get_or_init_model"]
 
 
 def packaged_model_path(name: str) -> str:
@@ -38,10 +48,13 @@ def _resolve(path: str) -> str:
 
 
 def _build(arch: dict, params: dict):
+    from .cmn import MultiViewCMN, TripletCMN, ViewSemSegNet
     from .pointnet import PointClassNet, PointSegNet
     from .unet3d import UNet3D
 
-    classes = {"UNet3D": UNet3D, "PointClassNet": PointClassNet, "PointSegNet": PointSegNet}
+    classes = {"UNet3D": UNet3D, "PointClassNet": PointClassNet, "PointSegNet": PointSegNet,
+               "MultiViewCMN": MultiViewCMN, "TripletCMN": TripletCMN,
+               "ViewSemSegNet": ViewSemSegNet}
     if arch["cls"] not in classes:
         raise KeyError(f"model class '{arch['cls']}' is not ported yet")
     kw = {k: v for k, v in arch["kwargs"].items() if k != "dtype"}
@@ -49,17 +62,21 @@ def _build(arch: dict, params: dict):
     for k, v in list(kw.items()):
         if isinstance(v, list):
             kw[k] = tuple(tuple(x) if isinstance(x, list) else x for x in v)
-    if arch["cls"] != "UNet3D":
-        # flax infers a Dense layer's input width; the port reads it off the kernel
+    # flax infers a layer's input width; the port reads it off the first kernel
+    if arch["cls"] in ("PointClassNet", "PointSegNet"):
         kw["n_in"] = int(params["_PointBackbone_0"]["Dense_0"]["kernel"].shape[0])
+    elif arch["cls"] in ("MultiViewCMN", "TripletCMN"):
+        kw["n_in"] = int(params["_ViewTrunk_0"]["Conv_0"]["kernel"].shape[2])
+    elif arch["cls"] == "ViewSemSegNet":
+        kw["n_in"] = int(params["Conv_0"]["kernel"].shape[2])
     return classes[arch["cls"]](**kw)
 
 
 def load_model(path: str) -> Tuple[Any, dict]:
-    """Load ``(model, params)``: the port's module (:class:`UNet3D`,
-    :class:`PointClassNet` or :class:`PointSegNet`; CPU, weights loaded) and
-    the flax params tree of numpy arrays. A missing model raises
-    ``FileNotFoundError``: the port never seed-initialises one."""
+    """Load ``(model, params)``: the port's module (:class:`UNet3D`, a point
+    net or a view net; CPU, weights loaded) and the flax params tree of numpy
+    arrays. A missing model raises ``FileNotFoundError`` (seed
+    initialisation is :func:`get_or_init_model`'s)."""
     from .convert import module_state_from_flax
 
     path = _resolve(path)
@@ -80,3 +97,77 @@ def load_model_meta(path: str) -> dict:
             return json.load(f).get("meta", {})
     except (OSError, ValueError):
         return {}
+
+
+def save_model(path: str, model, params: Optional[dict] = None,
+               extra_meta: Optional[dict] = None) -> None:
+    """Persist a port module as a model directory the JAX package's
+    ``load_model`` reads: ``arch.json`` (``model.arch_kwargs()``: the flax
+    module's fields) and ``params.msgpack`` (``params``, else the module's
+    state as a flax tree)."""
+    from .convert import flax_tree_from_module
+
+    os.makedirs(path, exist_ok=True)
+    arch = {"cls": type(model).__name__, "kwargs": model.arch_kwargs(), "meta": extra_meta or {}}
+    with open(os.path.join(path, "arch.json"), "w") as f:
+        json.dump(arch, f, indent=1)
+    tree = params if params is not None else flax_tree_from_module(model)
+    with open(os.path.join(path, "params.msgpack"), "wb") as f:
+        f.write(msgpack_serialize(tree))
+
+
+# flax's lecun_normal: a normal truncated to [-2, 2] scaled by
+# sqrt(1 / fan_in) / 0.8796..., the std of that truncated normal
+_TRUNC_STD = 0.87962566103423978
+
+
+def init_model_params(model, seed: int = 0) -> dict:
+    """Initialise ``model`` in place with flax's default initialisers, drawn
+    from ``torch.Generator().manual_seed(seed)`` in the module's parameter
+    order, and return its flax params tree: conv and dense kernels
+    ``lecun_normal`` (a truncated normal of variance 1 / fan_in, fan_in
+    counting the kernel taps), biases 0, norm scales 1."""
+    import torch
+
+    from .convert import flax_tree_from_module
+
+    gen = torch.Generator().manual_seed(int(seed))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "weight":
+                fan_in = p[0].numel()  # (O, I, taps...): I x taps
+                std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+                p.copy_(torch.nn.init.trunc_normal_(torch.empty(p.shape), 0.0, 1.0, -2.0, 2.0,
+                                                    generator=gen) * std)
+            elif leaf == "scale":
+                p.fill_(1.0)
+            else:
+                p.zero_()
+    return flax_tree_from_module(model)
+
+
+def get_or_init_model(path: str, builder: Callable[[], Any], seed: int = 0,
+                      require_trained: bool = False):
+    """Load a model directory, or initialise one from ``seed`` and persist it.
+
+    Resolution order as the JAX package's: the model at ``path``, then the
+    packaged weights of the same name, then (``require_trained`` False) a
+    seed initialisation of ``builder()`` (the port module), saved to ``path``
+    with ``{"initialized_only": true, "seed": seed}``; with
+    ``require_trained`` a missing model raises ``FileNotFoundError``.
+    Returns ``(model, params)`` as :func:`load_model`."""
+    if model_exists(path):
+        return load_model(path)
+    packaged = packaged_model_path(os.path.basename(os.path.normpath(path)))
+    if model_exists(packaged):
+        return load_model(packaged)
+    if require_trained:
+        raise FileNotFoundError(
+            f"no trained weights at '{path}' (and no packaged fallback at '{packaged}'); this "
+            f"inference path refuses seed-initialised weights. For smoke runs only, set "
+            f"views.allow_untrained_models: true")
+    model = builder()
+    params = init_model_params(model, seed=seed)
+    save_model(path, model, params, extra_meta={"initialized_only": True, "seed": seed})
+    return model, params

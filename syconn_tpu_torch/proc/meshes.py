@@ -2,10 +2,10 @@
 of ``syconn_tpu/proc/meshes.py``, the same numpy code): ``find_meshes``
 (surface nets per object of a label chunk), ``merge_meshes``,
 ``mesh_area_calc``, ``write_mesh2kzip``, ``triangulation_from_coords``
-(meshes of the cell-level synapses and contacts, step 6) and
-``compartmentalize_mesh`` (a cell mesh split by its vertex labels, step 7).
-The view helpers (``calc_rot_matrices``, ``MeshObject``) come with the
-views, ROADMAP Queue 1 item 9.
+(meshes of the cell-level synapses and contacts, step 6),
+``compartmentalize_mesh`` (a cell mesh split by its vertex labels, step 7)
+and the view helpers ``calc_rot_matrices`` (per-location PCA rotations of
+the view boxes) and ``MeshObject``.
 """
 
 from __future__ import annotations
@@ -24,6 +24,8 @@ __all__ = [
     "mesh_area_calc",
     "write_mesh2kzip",
     "triangulation_from_coords",
+    "calc_rot_matrices",
+    "MeshObject",
     "compartmentalize_mesh",
 ]
 
@@ -120,6 +122,58 @@ def triangulation_from_coords(
     ind, vert, norm = surface_net_mesh(mask, scale=(voxel_size_nm,) * 3)
     vert = vert.reshape(-1, 3) + lo[None].astype(np.float32)
     return [ind, vert.reshape(-1), norm]
+
+
+def calc_rot_matrices(coords: np.ndarray, vertices: np.ndarray, edge_length_nm: float) -> np.ndarray:
+    """Per-location PCA rotation matrices for view rendering: orient each
+    view box along the local principal axes of the surrounding vertex cloud."""
+    from scipy import spatial
+
+    coords = np.asarray(coords, np.float32)
+    vertices = np.asarray(vertices, np.float32).reshape(-1, 3)
+    tree = spatial.cKDTree(vertices)
+    rots = np.zeros((len(coords), 3, 3), np.float32)
+    for i, c in enumerate(coords):
+        ixs = tree.query_ball_point(c, edge_length_nm)
+        if len(ixs) < 3:
+            rots[i] = np.eye(3)
+            continue
+        pts = vertices[ixs] - c[None]
+        cov = pts.T @ pts / len(pts)
+        _, evecs = np.linalg.eigh(cov)
+        rot = evecs[:, ::-1].T  # rows = principal axes, major first
+        if np.linalg.det(rot) < 0:
+            rot[2] *= -1
+        rots[i] = rot
+    return rots
+
+
+class MeshObject:
+    """Normalized-coordinate mesh wrapper."""
+
+    def __init__(self, object_type: str, indices, vertices, normals=None, color=None, swap_yz=False):
+        self.object_type = object_type
+        self.indices = np.asarray(indices, np.int64).reshape(-1)
+        vert = np.asarray(vertices, np.float32).reshape(-1, 3)
+        self._raw_vertices = vert
+        self.center = vert.mean(axis=0) if len(vert) else np.zeros(3, np.float32)
+        extent = (vert.max(axis=0) - vert.min(axis=0)).max() if len(vert) else 1.0
+        self.max_dist = max(float(extent) / 2.0, 1e-6)
+        self.vertices = ((vert - self.center) / self.max_dist).reshape(-1)
+        self.normals = (
+            np.asarray(normals, np.float32).reshape(-1) if normals is not None else np.zeros(0, np.float32)
+        )
+        self.color = color
+
+    @property
+    def vert_resh(self) -> np.ndarray:
+        return self.vertices.reshape(-1, 3)
+
+    def transform_external_coords(self, coords: np.ndarray) -> np.ndarray:
+        return (np.asarray(coords, np.float32) - self.center[None]) / self.max_dist
+
+    def retransform_external_coords(self, coords: np.ndarray) -> np.ndarray:
+        return np.asarray(coords, np.float32) * self.max_dist + self.center[None]
 
 
 def compartmentalize_mesh(ssv, semseg_key: str = "axoness") -> Dict[int, List[np.ndarray]]:

@@ -10,11 +10,8 @@ Storage layout (same shape as the reference):
         so_storage/{shard}/mesh.pkl           per-object meshes
         so_storage/{shard}/voxel_dyn.pkl      bb/size/rep (voxels re-queried)
         so_storage/{shard}/skeletons.pkl
+        so_storage/{shard}/views.pkl          per-object rendered views
         {attr}s.npy                           dataset-level numpy caches
-
-The view methods (``load_views``, ``save_views``, ``views``) need the
-renderer (``render/``), which the port does not have yet (ROADMAP Queue 1,
-the views item); they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -271,22 +268,34 @@ class SegmentationObject(SegmentationBase):
         self._skeleton = skeleton
 
     # ----------------------------------------------------------------- views
-    _NO_VIEWS = ("rendered views need render/, which is not ported yet "
-                 "(ROADMAP Queue 1, the views item)")
-
     @property
     def view_path(self) -> str:
         return os.path.join(self.segobj_dir, "views.pkl")
 
-    def load_views(self, view_key: str = "raw"):
-        raise NotImplementedError(self._NO_VIEWS)
+    def load_views(self, view_key: str = "raw") -> Optional[np.ndarray]:
+        """Cached rendered views of this object; None where there are none."""
+        from ..backend import CompressedStorage
 
-    def save_views(self, views, view_key: str = "raw"):
-        raise NotImplementedError(self._NO_VIEWS)
+        if not os.path.isfile(self.view_path):
+            return None
+        cs = CompressedStorage(self.view_path, read_only=True, disable_locking=True)
+        key = (self.id, view_key)
+        if key in cs:
+            return cs[key]
+        if self.id in cs:
+            return cs[self.id]
+        return None
+
+    def save_views(self, views: np.ndarray, view_key: str = "raw"):
+        from ..backend import CompressedStorage
+
+        cs = CompressedStorage(self.view_path, read_only=False)
+        cs[(self.id, view_key)] = np.asarray(views)
+        cs.push()
 
     @property
-    def views(self):
-        raise NotImplementedError(self._NO_VIEWS)
+    def views(self) -> Optional[np.ndarray]:
+        return self.load_views()
 
     # ------------------------------------------------------------- locations
     def sample_locations(self, ds_factor: Optional[float] = None) -> np.ndarray:

@@ -20,9 +20,10 @@ same arrays under its own name (``backend/bst.py``). SV graphs are the
 port's ``{"edges", "nodes"}`` dicts (``io/graph.py``); the file keeps the
 JAX package's format, a pickled list of (sv, sv) edges.
 
-The point-model predictions and the cell helpers of steps 7-9 are here;
-the view, rendering and kzip export methods raise ``NotImplementedError``
-naming their ROADMAP item.
+The point-model and view-model predictions, rendering and the cell helpers
+of steps 7-9 are here (each device method takes ``device``: ``None`` is the
+CUDA card); the kzip export methods raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -40,7 +41,6 @@ from .segmentation import SegmentationDataset, SegmentationObject
 
 __all__ = ["SuperSegmentationObject", "SuperSegmentationDataset", "save_dataset_deep"]
 
-_NO_VIEWS = ("views and rendering are not ported yet: ROADMAP Queue 1, item 9 (views)")
 _NO_KZIP = ("kzip export of cells is not ported yet: ROADMAP Queue 1, item 12 (tail)")
 
 
@@ -448,20 +448,37 @@ class SuperSegmentationObject(SegmentationBase):
 
         return compartmentalize_mesh(self, semseg_key=semseg_key)
 
-    def predict_celltype_multiview(self, *args, **kw):
-        raise NotImplementedError(_NO_VIEWS)
+    def predict_celltype_multiview(self, **kw):
+        """Cell type from rendered views (``celltype_cnn_e3``)."""
+        from ..inference.views_infer import celltype_of_sso_views
 
-    def predict_semseg(self, *args, **kw):
-        raise NotImplementedError(_NO_VIEWS)
+        return celltype_of_sso_views(self, **kw)
 
-    def predict_views_embedding(self, *args, **kw):
-        raise NotImplementedError(_NO_VIEWS)
+    def predict_semseg(self, semseg_key: str = "axoness", **kw):
+        """Per-vertex and per-node labels from rendered views."""
+        from ..inference.views_infer import semseg_of_sso_views
 
-    def render_views(self, *args, **kw):
-        raise NotImplementedError(_NO_VIEWS)
+        return semseg_of_sso_views(self, semseg_key=semseg_key, **kw)
 
-    def render_indexviews(self, *args, **kw):
-        raise NotImplementedError(_NO_VIEWS)
+    def predict_views_embedding(self, **kw):
+        """Morphology embedding from rendered views (``latent_morph``)."""
+        from ..inference.views_infer import view_embedding_of_sso
+
+        return view_embedding_of_sso(self, **kw)
+
+    def render_views(self, coords_nm=None, **kw):
+        """Depth views at ``coords_nm``, else at the sampled locations."""
+        from ..render.views import render_sampled_sso, render_sso_coords
+
+        if coords_nm is None:
+            return render_sampled_sso(self, **kw)[0]
+        return render_sso_coords(self, coords_nm, **kw)
+
+    def render_indexviews(self, coords_nm, **kw):
+        """Cell-mesh vertex index views at ``coords_nm``."""
+        from ..render.views import render_sso_coords_index_views
+
+        return render_sso_coords_index_views(self, coords_nm, **kw)
 
     # ----------------------------------------------------------------- kzip
     def skeleton_to_kzip(self, *args, **kw):

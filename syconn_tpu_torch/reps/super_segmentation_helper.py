@@ -9,8 +9,8 @@ Skeleton graphs are the port's :class:`..proc.graphs.AdjacencyGraph`
 :func:`create_sso_skeleton_fast` is Kruskal's over the graph's edges in
 networkx's order with a stable sort, as ``networkx.minimum_spanning_tree``
 picks among equal weights. The view-based helpers (``*_nocache``, and
-``semseg2mesh`` where no labels are stored) need the renderer: they raise
-``NotImplementedError`` naming ROADMAP Queue 1 item 9.
+``semseg2mesh`` where no labels are stored) are ``inference/views_infer.py``'s
+functions.
 """
 
 from __future__ import annotations
@@ -22,6 +22,12 @@ import numpy as np
 from scipy import ndimage, sparse, spatial
 from scipy.sparse.csgraph import dijkstra
 
+from ..inference.views_infer import (  # noqa: F401 (the JAX package's names)
+    celltype_of_sso_views as celltype_of_sso_nocache,
+    gliapred_sso_views as gliapred_sso_nocache,
+    semseg_of_sso_views as semseg_of_sso_nocache,
+    view_embedding_of_sso as view_embedding_of_sso_nocache,
+)
 from ..proc.graphs import AdjacencyGraph, create_graph_from_coords
 from ..proc.skeleton import majorityvote_skeleton_property, map_myelin2coords  # noqa: F401
 from ..skeleton.sparsify import (  # noqa: F401
@@ -50,25 +56,6 @@ __all__ = [
     "semseg_of_sso_nocache",
     "gliapred_sso_nocache",
 ]
-
-_NO_VIEWS = "views and rendering are not ported yet: ROADMAP Queue 1, item 9 (views)"
-
-
-def celltype_of_sso_nocache(*args, **kw):
-    raise NotImplementedError(_NO_VIEWS)
-
-
-def view_embedding_of_sso_nocache(*args, **kw):
-    raise NotImplementedError(_NO_VIEWS)
-
-
-def semseg_of_sso_nocache(*args, **kw):
-    raise NotImplementedError(_NO_VIEWS)
-
-
-def gliapred_sso_nocache(*args, **kw):
-    raise NotImplementedError(_NO_VIEWS)
-
 
 def _kruskal_mst(g: AdjacencyGraph) -> AdjacencyGraph:
     """``networkx.minimum_spanning_tree(g)``: edges sorted stably by
@@ -124,7 +111,8 @@ def create_sso_skeleton_fast(ssv, ds_factor_nm: float = 2000.0, save: bool = Tru
 
 def semseg2mesh(ssv, semseg_key: str, **kw):
     """Vertex labels of a semantic segmentation, stored under
-    ``{semseg_key}_vertex_labels``; computing them from views raises."""
+    ``{semseg_key}_vertex_labels``; where none are stored, predicted from
+    rendered views (``kw``: ``semseg_of_sso_views``'s, ``device`` among them)."""
     v = ssv.lookup_in_attribute_dict(f"{semseg_key}_vertex_labels")
     if v is not None:
         return v

@@ -1,6 +1,6 @@
 """The port imports nothing of JAX, flax, msgpack, PyYAML, networkx,
-scikit-learn or the JAX package, and its entry points refuse to run silently
-on the CPU."""
+scikit-learn, matplotlib or the JAX package, and its entry points refuse to
+run silently on the CPU."""
 
 import os
 import pkgutil
@@ -16,7 +16,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
 for name in ("jax", "jaxlib", "flax", "msgpack", "syconn_tpu", "zstandard", "yaml", "h5py",
-             "tqdm", "networkx", "sklearn"):
+             "tqdm", "networkx", "sklearn", "matplotlib"):
     sys.modules[name] = None
 sys.path.insert(0, {root!r})
 import syconn_tpu_torch
@@ -26,7 +26,7 @@ for n in names:
 import chip_smoke
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "flax", "msgpack", "syconn_tpu", "h5py", "tqdm", "networkx",
-                              "sklearn")
+                              "sklearn", "matplotlib")
        and sys.modules[m] is not None]
 assert not bad, bad
 print(len(names))
@@ -40,7 +40,7 @@ def test_port_imports_without_jax_flax_msgpack_or_reference():
     import syconn_tpu_torch
 
     n = len(list(pkgutil.walk_packages(syconn_tpu_torch.__path__, "syconn_tpu_torch.")))
-    assert int(out.stdout.strip().splitlines()[-1]) == n >= 75
+    assert int(out.stdout.strip().splitlines()[-1]) == n >= 83
 
 
 def test_entry_points_without_device_raise(monkeypatch, tmp_path):
@@ -170,8 +170,8 @@ def test_step2_entry_points_without_device_raise(monkeypatch, tmp_path):
 
 
 def test_config_driven_entry_points_without_device_raise(monkeypatch, tmp_path):
-    """The working-directory entry points of steps 1-9 and the export: CUDA
-    or ``device="cpu"``."""
+    """The working-directory entry points of steps 1-9, the export and the
+    view rendering: CUDA or ``device="cpu"``."""
     from _torch_helpers import port_wd
     from syconn_tpu_torch.exec.exec_dense_prediction import predict_cellorganelles
     from syconn_tpu_torch.exec.exec_inference import (run_astrocyte_prediction,
@@ -182,6 +182,7 @@ def test_config_driven_entry_points_without_device_raise(monkeypatch, tmp_path):
                                                       run_semsegaxoness_prediction,
                                                       run_semsegspiness_prediction)
     from syconn_tpu_torch.exec.exec_init import init_cell_subcell_sds, run_create_neuron_ssd
+    from syconn_tpu_torch.exec.exec_render import run_astrocyte_rendering, run_neuron_rendering
     from syconn_tpu_torch.exec.exec_skeleton import run_skeleton_generation
     from syconn_tpu_torch.exec.exec_syns import (run_cs_ssv_generation, run_matrix_export,
                                                  run_spinehead_volume_calc, run_syn_generation)
@@ -220,7 +221,9 @@ def test_config_driven_entry_points_without_device_raise(monkeypatch, tmp_path):
                  lambda **kw: run_morphology_embedding(**kw),
                  lambda **kw: run_cell_embedding(**kw),
                  lambda **kw: run_celltype_prediction(**kw),
-                 lambda **kw: run_matrix_export(**kw)]
+                 lambda **kw: run_matrix_export(**kw),
+                 lambda **kw: run_neuron_rendering(**kw),
+                 lambda **kw: run_astrocyte_rendering(**kw)]
         for call in calls:
             for kw in ({}, {"device": "cuda"}):
                 with pytest.raises(RuntimeError, match="CUDA"):

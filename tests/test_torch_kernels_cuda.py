@@ -505,3 +505,53 @@ def test_steps_7_to_9_predictions_card_match_cpu(dev, tmp_path):
             ac["celltype_cnn_e3_probas"])
         assert float(((lg - lr).abs() / lr.abs().clamp_min(1e-2)).median()) < 3e-2
         np.testing.assert_allclose(ad["latent_morph"], ac["latent_morph"], rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("ws,nb_views", [((128, 64), 2), ((256, 128), 2), ((128, 64), 1)])
+def test_renderer_card_matches_cpu(dev, ws, nb_views):
+    """The splat renderer on the card: depth and index views equal to the
+    CPU's (elementwise view transform in a fixed order, exact scatters), on
+    a surface-nets blob under PCA rotations with grid ties and vertices
+    outside the boxes."""
+    from syconn_tpu_torch.mesh.surface_nets import surface_net_mesh
+    from syconn_tpu_torch.proc.meshes import calc_rot_matrices
+    from syconn_tpu_torch.render.raster import render_views_splat
+
+    g = np.arange(64)
+    gx, gy, gz = np.meshgrid(g, g[:48], g[:32], indexing="ij")
+    mask = ((gx - 32) / 28.0) ** 2 + ((gy - 24) / 14.0) ** 2 + ((gz - 16) / 10.0) ** 2 <= 1
+    _, vert, _ = surface_net_mesh(mask, scale=(10, 10, 20))
+    v = vert.reshape(-1, 3)
+    rng = np.random.default_rng(0)
+    locs = v[rng.choice(len(v), 21)]
+    rots = calc_rot_matrices(locs, v, 8000.0)
+    ref = render_views_splat(v, locs, rots, 2000.0, ws, nb_views, device="cpu")
+    got = render_views_splat(v, locs, rots, 2000.0, ws, nb_views, device=dev)
+    assert (ref[1] >= 0).any()
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_array_equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("name", ["celltype", "tnet", "semseg"])
+def test_view_net_card_matches_cpu(dev, name):
+    """The view nets at the inference functions' widths, seed-initialised, on the card
+    against the CPU on view-like input: logits within the dense budget
+    (median relative error < 3e-2, argmax flips < 2e-2 at random init)."""
+    from syconn_tpu_torch.models.cmn import MultiViewCMN, TripletCMN, ViewSemSegNet
+    from syconn_tpu_torch.models.io import init_model_params
+
+    model = {"celltype": lambda: MultiViewCMN(n_classes=8, widths=(16, 32, 64)),
+             "tnet": lambda: TripletCMN(embed_dim=10, widths=(16, 32, 64)),
+             "semseg": lambda: ViewSemSegNet(n_classes=3, widths=(16, 32, 64))}[name]()
+    init_model_params(model, seed=0)
+    rng = np.random.default_rng(1)
+    shape = (8, 128, 64, 4) if name == "semseg" else (8, 2, 128, 64, 4)
+    x = rng.integers(0, 256, size=shape).astype(np.float32)
+    x[rng.random(shape) < 0.5] = 255
+    x = torch.from_numpy(x)
+    with torch.inference_mode():
+        ref = model(x)
+        got = model.to(dev)(x.to(dev)).cpu()
+    rel = (got - ref).abs() / ref.abs().clamp_min(1e-2)
+    assert bool(torch.isfinite(got).all()) and float(rel.median()) < 3e-2
+    assert float((got.argmax(-1) != ref.argmax(-1)).float().mean()) < 2e-2

@@ -8,6 +8,8 @@ gives the same outputs, dispatches and rows; ``ContextPredictor`` pads
 short batches and needs the card unless asked for the CPU; so do the
 predictions of steps 7-9, which run on a one-cell working directory."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -224,24 +226,47 @@ def test_steps_7_to_9_drivers_raise(monkeypatch, tmp_path):
     assert 0 <= ad.attr_dict["celltype_cnn_e3_certainty"] <= 1
 
 
-def test_view_route_raises_item_9(tmp_path):
-    """``use_point_models: False`` (the multi-view models) needs the
-    renderer; the point entry points name its ROADMAP item."""
+def test_view_route_raises_item_9(monkeypatch, tmp_path):
+    """The view route (``use_point_models: False``, ROADMAP Queue 1 item 9,
+    ported): without a card the three view-route entry points and the four
+    ``*_nocache`` helpers raise ``RuntimeError`` (no device and
+    ``device="cuda"``); with ``device="cpu"`` they run on a one-cell
+    directory, seed-initialising the view nets where
+    ``views.allow_untrained_models`` allows it."""
     from _torch_helpers import port_wd
     from syconn_tpu_torch.exec import exec_inference
     from syconn_tpu_torch.handler.config import generate_default_conf
     from syconn_tpu_torch.reps import super_segmentation_helper as ssh
+    from syconn_tpu_torch.reps.super_segmentation import SuperSegmentationDataset
 
-    wd = str(tmp_path / "wd")
-    generate_default_conf(wd, scaling=(10, 10, 20), key_value_pairs=[("use_point_models", False)])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    wd = _one_cell_wd(tmp_path)
+    generate_default_conf(wd, scaling=(10, 10, 20), force_overwrite=True, key_value_pairs=[
+        ("use_point_models", False), ("views", {"allow_untrained_models": True})])
+    entry = (exec_inference.run_celltype_prediction, exec_inference.run_semsegaxoness_prediction,
+             exec_inference.run_morphology_embedding)
+    helpers = (ssh.celltype_of_sso_nocache, ssh.semseg_of_sso_nocache,
+               ssh.view_embedding_of_sso_nocache, ssh.gliapred_sso_nocache)
     with port_wd(wd) as cfg:
         assert not cfg.use_point_models
-        for fn in (exec_inference.run_celltype_prediction,
-                   exec_inference.run_semsegaxoness_prediction,
-                   exec_inference.run_morphology_embedding):
-            with pytest.raises(NotImplementedError, match="item 9"):
-                fn(device="cpu")
-    for fn in (ssh.celltype_of_sso_nocache, ssh.semseg_of_sso_nocache,
-               ssh.view_embedding_of_sso_nocache, ssh.gliapred_sso_nocache):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            fn(None)
+        sso = SuperSegmentationDataset(working_dir=wd).get_super_segmentation_object(3)
+        for fn in entry + tuple((lambda f: lambda **kw: f(sso, **kw))(h) for h in helpers):
+            for kw in ({}, {"device": "cuda"}):
+                with pytest.raises(RuntimeError, match="CUDA"):
+                    fn(**kw)
+        stats = {}
+        assert all(fn(device="cpu", stats=stats) == 1 for fn in entry)
+        assert stats["locations"] > 0 and stats["dispatches"] > 0
+        assert 0.0 <= ssh.gliapred_sso_nocache(sso, device="cpu") <= 1.0
+        assert ssh.view_embedding_of_sso_nocache(sso, device="cpu").shape == (10,)
+        assert 0 <= ssh.celltype_of_sso_nocache(sso, device="cpu") < 8
+        labels = ssh.semseg_of_sso_nocache(sso, device="cpu")
+    assert sorted(os.listdir(os.path.join(wd, "models"))) == [
+        "axoness_semseg", "celltype", "glia", "tnet"]
+    ad = SuperSegmentationDataset(working_dir=wd).get_super_segmentation_object(3)
+    ad.load_attr_dict()
+    assert ad.load_skeleton() and len(ad.skeleton["axoness"]) == 10
+    np.testing.assert_array_equal(ad.attr_dict["axoness_vertex_labels"], labels)
+    assert len(labels) * 3 == len(ad.load_mesh("sv")[1])
+    assert ad.attr_dict["latent_morph"].shape == (10,)
+    assert 0 <= ad.attr_dict["celltype_cnn_e3_certainty"] <= 1

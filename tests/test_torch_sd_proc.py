@@ -185,8 +185,12 @@ def test_segmentation_objects_read_back(tmp_path):
         assert mo.attr_dict["size"] == sd_mi.sizes[0]
         assert mo.lookup_in_attribute_dict("mapping_ids") is not None
         assert len(so.sample_locations()) >= 1
-        with pytest.raises(NotImplementedError, match="render"):
-            so.load_views()
+        assert so.load_views() is None and so.views is None  # none rendered yet
+        views = np.random.default_rng(0).integers(0, 256, (3, 2, 4, 16, 8), dtype=np.uint8)
+        so.save_views(views)
+        np.testing.assert_array_equal(so.load_views(), views)
+        np.testing.assert_array_equal(sd.get_segmentation_object(10).views, views)
+        assert so.load_views("index") is None
 
 
 def test_graph_io_and_component_sizes_without_networkx(tmp_path):

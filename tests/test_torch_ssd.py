@@ -102,6 +102,7 @@ def test_graph_from_coords_equals_networkx():
 
 
 def test_sso_sv_graph_file_and_later_methods(tmp_path, monkeypatch):
+    from _torch_helpers import port_wd
     from syconn_tpu.handler.basics import load_pkl2obj
     from syconn_tpu_torch.handler.config import generate_default_conf
     from syconn_tpu_torch.reps.super_segmentation import (SuperSegmentationDataset,
@@ -123,13 +124,22 @@ def test_sso_sv_graph_file_and_later_methods(tmp_path, monkeypatch):
     assert again.sv_ids.tolist() == [3, 7, 9]
     ssd.build_sv2ssv_index()
     assert ssd.sv2ssv_ids(np.array([9, 3], np.uint64)).tolist() == [3, 3]
-    for meth, item in (("render_views", "item 9"), ("export2kzip", "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
-            getattr(sso, meth)()
-    # steps 7-9 are ported: the cell type runs the celltype net (here the
-    # card is hidden, so it asks for one), and a cell without spine labels
-    # has no spine compartments
+    with pytest.raises(NotImplementedError, match="item 12"):
+        sso.export2kzip()
+    # steps 7-9 and the views are ported: the cell type runs the celltype
+    # net and the views the renderer (here the card is hidden, so both ask
+    # for one), and a cell without spine labels has no spine compartments
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         sso.predict_celltype()
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            sso.render_views(**kw)
+    # this cell has no mesh: no sampled locations, and background everywhere
+    with port_wd(wd):
+        assert len(sso.render_views(device="cpu")) == 0
+        views = sso.render_views(np.zeros((2, 3)), ws=(32, 16), nb_views=2, device="cpu")
+        index = sso.render_indexviews(np.zeros((2, 3)), ws=(32, 16), nb_views=2, device="cpu")
+    assert views.shape == (2, 2, 4, 32, 16) and (views == 255).all()
+    assert index.shape == (2, 2, 32, 16) and (index == -1).all()
     assert all(len(x) == 0 for x in sso.get_spine_compartments())
