@@ -45,6 +45,17 @@ Phases, each failing the run on error:
      segmentation (one chunk of dense labels) held resident, equal to the
      host scan; the device functions of step 2 against their CPU runs, and
      each alone on one deployment chunk against its host counterpart;
+  6b. training (``phase_slice_training``, before the pipeline so that its
+     launches count): the organelles U-Net at its published width and myelin
+     at mag 4 trained through ``cnn/toy.py`` on a seeded toy world (ms a
+     step, voxels/s, peak bytes, losses finite and falling), myelin
+     calibrated on the card (threshold, seconds, launches; probabilities
+     against the plain version and against the initial weights'), one step
+     card against CPU for the U-Net, the celltype point net and the view
+     CMN, and the trained organelles nets (published width and ``start.py``'s
+     override) deployed through ``predict_cellorganelles`` and
+     ``generate_subcell_kd_from_proba``, every conv layer held to its plain
+     version at the shapes of the calibration and deployment tiles;
   7. the slice pipeline (``phase_slice_pipeline``): steps 1, 2 and 6a through
      the working-directory configuration into ``sv``, ``mi``, ``vc``, ``cs``
      and ``syn`` SegmentationDatasets and a pruned supervoxel graph, on the
@@ -2252,6 +2263,450 @@ def phase_slice_views(dev, work: str, forward_ms: dict, frame_ms: dict):
     global_params.wd = None
 
 
+# ---------------------------------------------------------------- training
+# the slice training phase (models/train.py and cnn/): a seeded toy world
+# (start.py's default world generator) in its own working directory
+TRAIN_WORLD = dict(shape=(192, 192, 96), n_cells=5, svs_per_cell=3, seed=3)
+TRAIN_STEPS = 20
+TRAIN_WARMUP = 3  # steps left out of the median (cuDNN plans, allocator)
+# start.py --train_models' organelles override (syconn_tpu/examples/start.py:292-293)
+START_OVERRIDE = dict(features=(32, 64), strides=((2, 2, 2),), patch=(2, 2, 2))
+# card against CPU, one step from the same init and batch: the loss agrees
+# within this relative tolerance (the models compute in bf16; the CPU
+# parity tests against the JAX package measure ~3e-4 between the packages)
+STEP_LOSS_RTOL = 1e-2
+POINT_STEP = dict(npoints=2048, batch=8)
+VIEW_STEP = dict(ws=(128, 64), nb_views=2, batch=16, widths=(16, 32, 64))
+
+
+class _StepRecorder:
+    """Wraps ``models.train``'s step factories while a trainer runs: each
+    step is timed between CUDA events and on the host clock (the card
+    synchronised before and after, so the host's own work between steps is
+    the batch sampling), and its loss kept."""
+
+    def __init__(self):
+        self.events, self.walls, self.gaps, self.losses = [], [], [], []
+
+    def __enter__(self):
+        import torch
+
+        from syconn_tpu_torch.models import train as mtrain
+
+        self._mod, self._orig = mtrain, {}
+        last = [None]
+
+        def wrap(factory):
+            def make(*a, **kw):
+                fn = factory(*a, **kw)
+
+                def step(state, *xs):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    if last[0] is not None:
+                        self.gaps.append(t0 - last[0])
+                    a_ev = torch.cuda.Event(enable_timing=True)
+                    b_ev = torch.cuda.Event(enable_timing=True)
+                    a_ev.record()
+                    state, m = fn(state, *xs)
+                    b_ev.record()
+                    torch.cuda.synchronize()
+                    last[0] = time.perf_counter()
+                    self.walls.append(last[0] - t0)
+                    self.events.append((a_ev, b_ev))
+                    self.losses.append(float(m["loss"]))
+                    return state, m
+
+                return step
+
+            return make
+
+        for name in ("make_train_step", "make_class_train_step", "make_triplet_train_step"):
+            self._orig[name] = getattr(mtrain, name)
+            setattr(mtrain, name, wrap(self._orig[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(self._mod, name, fn)
+
+    def summary(self, samples_per_step: int, voxels_per_sample: int = 0) -> dict:
+        import numpy as np
+
+        ms = [a.elapsed_time(b) for a, b in self.events]
+        steady = ms[TRAIN_WARMUP:] or ms
+        med = float(np.median(steady))
+        out = dict(steps=len(ms), ms_per_step=med,
+                   wall_ms_per_step=float(np.median(self.walls[TRAIN_WARMUP:] or self.walls)) * 1e3,
+                   host_ms_between_steps=float(np.median(self.gaps)) * 1e3 if self.gaps else 0.0,
+                   first_step_ms=ms[0], samples_per_s=samples_per_step / med * 1e3,
+                   loss_first=self.losses[0], loss_last=self.losses[-1])
+        if voxels_per_sample:
+            out["voxels_per_s"] = samples_per_step * voxels_per_sample / med * 1e3
+        return out
+
+
+def _require_learning(what: str, losses):
+    import numpy as np
+
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{what}: non-finite training loss {losses}")
+    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        raise AssertionError(f"{what}: the loss did not fall over {len(losses)} steps: {losses}")
+
+
+def _per_tile(model) -> dict:
+    """Conv kernel launches of one U-Net forward on the engine (every
+    extent even, the head fused): two SAME convs a block, one stride-2 conv
+    and one transpose a level."""
+    d = len(model.features)
+    return {"conv3x3x3_ln_gelu": 4 * d - 2, "conv_down2x_bias": d - 1,
+            "conv_transpose2x_bias": d - 1}
+
+
+def _layers_alone(dev, model, params, vol, what: str) -> list:
+    """Every conv layer of the engine at this input's shapes, fed the CPU
+    run's input of the layer, against its plain version
+    (``tools/engine_layers.py``), held to the conv kernels' tolerance."""
+    from syconn_tpu_torch.models.convert import params_from_flax
+    from syconn_tpu_torch.tools.engine_layers import layer_report
+
+    rows = layer_report(model, params_from_flax(params, dev), params_from_flax(params, "cpu"),
+                        vol, dev)
+    for r in rows[:-1]:
+        a = r["alone"]
+        if a["median_rel"] >= 2e-2 or a["share_rel_gt_0.1"] >= 2e-2:
+            raise AssertionError(f"{what} layer {r['layer']} {r['shape']}: kernel against its "
+                                 f"plain version {a}")
+    log(f"slice training layers {what}: " + json.dumps(
+        [(r["layer"], r["shape"][1:4], round(r["alone"]["median_rel"], 6))
+         for r in rows[:-1]]))
+    return rows
+
+
+def _first_tile(vol, tile, halo):
+    """The dense predictor's first input window: the volume padded by the
+    halo, tile + 2 x halo voxels from the origin."""
+    import numpy as np
+
+    padded = np.pad(vol, [(h, h + t) for h, t in zip(halo, tile)])
+    return padded[tuple(slice(0, t + 2 * h) for t, h in zip(tile, halo))]
+
+
+def _probs_budget(got, ref, what: str) -> dict:
+    """uint8 probabilities of the card's engine against the plain version:
+    ``ORG_BUDGET``'s shares within 2 LSB and of a stable argmax."""
+    import numpy as np
+
+    d = np.abs(got.astype(np.int16) - ref.astype(np.int16))
+    res = dict(within_2_lsb=float((d <= 2).mean()), max_lsb=int(d.max()),
+               argmax_stable=float((got.argmax(-1) == ref.argmax(-1)).mean()))
+    if (res["within_2_lsb"] < ORG_BUDGET["within_2_lsb"]
+            or res["argmax_stable"] < ORG_BUDGET["argmax_stable"]):
+        raise AssertionError(f"{what}: card against plain {res}, budget {ORG_BUDGET}")
+    return res
+
+
+def _step_card_vs_cpu(dev, what: str, build, batch, step_factory, reps: int = 5) -> dict:
+    """One training step from the same seed initialisation
+    (``make_train_state``) and batch on the card and on the CPU: the losses
+    within ``STEP_LOSS_RTOL``; then the card's ms a step (CUDA events,
+    median of ``reps`` after a warm-up) and peak bytes."""
+    import numpy as np
+    import torch
+
+    from syconn_tpu_torch.models.train import make_train_state
+
+    losses = {}
+    for d in ("cpu", dev):
+        state = make_train_state(build(), None, learning_rate=1e-3, seed=1, device=d)
+        if d != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m = step_factory()(state, *batch)
+        losses[str(d)] = float(m["loss"])
+        if d == "cpu":
+            cpu_s = time.perf_counter() - t0
+    got, ref = losses[str(dev)], losses["cpu"]
+    if not (np.isfinite(got) and abs(got / ref - 1) <= STEP_LOSS_RTOL):
+        raise AssertionError(f"{what}: one step's loss card {got} against CPU {ref} "
+                             f"(rtol {STEP_LOSS_RTOL})")
+    step = step_factory()
+    ms = []
+    for i in range(reps + 1):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, m = step(state, *batch)
+        b.record()
+        b.synchronize()
+        if i:
+            ms.append(a.elapsed_time(b))
+    res = dict(loss_card=got, loss_cpu=ref, rel=abs(got / ref - 1),
+               ms_per_step=float(np.median(ms)), cpu_s_per_step=cpu_s,
+               samples_per_s=len(batch[0]) / float(np.median(ms)) * 1e3,
+               peak_bytes=int(torch.cuda.max_memory_allocated()))
+    log(f"slice training card vs cpu {what}: " + json.dumps(res))
+    return res
+
+
+def phase_slice_training(dev, work: str):
+    """Training (``models/train.py``, ``cnn/toy.py``) on a seeded toy world
+    in ``<work>/training_wd``:
+
+    1. the organelles U-Net at its published width (``unet_variants``:
+       64/128/256, patch (4, 4, 2)), ``TRAIN_STEPS`` steps of the JAX
+       trainer's default tile (64, 64, 32) at batch 2 through
+       ``train_toy_dense_models``: ms a step (CUDA events, median after
+       ``TRAIN_WARMUP``), voxels/s, peak bytes, first and last loss (finite,
+       falling); a synchronised breakdown of a step (host sampling between
+       steps, forward, backward, optimizer) and the profiler's top kernels;
+    2. myelin at mag 4 (64/128), ``TRAIN_STEPS`` steps, calibrated on the
+       card inside the trainer (``calibrate_binary_threshold`` through the
+       dense predictor on the conv kernels): threshold, seconds, launches
+       (tiles x launches a tile); the engine's uint8 probabilities on the
+       calibration volume against the plain version (``ORG_BUDGET``) and
+       against those of the initial weights (they must differ: the trainer
+       hands the calibration the trained values);
+    3. one step card against CPU from the same init and batch (loss within
+       ``STEP_LOSS_RTOL``) for the organelles U-Net, the celltype point net
+       (published width, 2048 points, batch 8) and the view-celltype CMN
+       (16/32/64, 128x64 x 2 views, batch 16), with ms a step and peak bytes;
+    4. train, then deploy: ``predict_cellorganelles()`` through the
+       configuration with the model just written, launches = dispatches x
+       launches a tile, maps equal to a ``DenseTilePredictor`` run on the same
+       weights; ``generate_subcell_kd_from_proba("mi")``; and ``start.py
+       --train_models``' organelles override trained and deployed the same
+       way. Every conv layer of each trained net is held to its plain
+       version at the shapes its calibration or deployment gives it.
+
+    Returns the conv kernels' launches of the calibration and deployments."""
+    import numpy as np
+    import torch
+
+    from syconn_tpu_torch import global_params
+    from syconn_tpu_torch.cnn import toy
+    from syconn_tpu_torch.exec import exec_dense_prediction
+    from syconn_tpu_torch.extraction.object_extraction import generate_subcell_kd_from_proba
+    from syconn_tpu_torch.handler.config import generate_default_conf
+    from syconn_tpu_torch.inference.dense import DenseTilePredictor
+    from syconn_tpu_torch.io.chunked import ChunkedVolume
+    from syconn_tpu_torch.models import train as mtrain
+    from syconn_tpu_torch.models.cmn import MultiViewCMN
+    from syconn_tpu_torch.models.io import init_model_params, load_model, load_model_meta
+    from syconn_tpu_torch.models.pointnet import PointClassNet
+    from syconn_tpu_torch.models.unet3d import UNet3D, unet_variants
+    from syconn_tpu_torch.ops.conv3d import LAUNCHES, reset_launch_counts
+    from syconn_tpu_torch.utils.testdata import generate_toy_world
+
+    t_phase = time.perf_counter()
+    wd = os.path.join(work, "training_wd")
+    generate_default_conf(wd, scaling=(10, 10, 20))
+    global_params.wd = wd
+    cfg = global_params.config
+    world = generate_toy_world(**TRAIN_WORLD)
+    kd = ChunkedVolume.create(cfg.kd_seg_path, scale=(10, 10, 20), boundary=world["raw"].shape)
+    kd.save_raw(world["raw"])
+    kd.save_seg(world["seg"])
+    launches = {k: 0 for k in REPLACES}
+    out = {}
+
+    # 1. organelles at the published width
+    tile, batch = (64, 64, 32), 2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _StepRecorder() as rec:
+        toy.train_toy_dense_models(world, steps=TRAIN_STEPS, tile=tile, batch=batch,
+                                   tasks=("organelles",), device=dev)
+    res = rec.summary(batch, int(np.prod(tile)))
+    res.update(seconds=time.perf_counter() - t0, peak_bytes=int(torch.cuda.max_memory_allocated()),
+               host_sampling_share=sum(rec.gaps) / (time.perf_counter() - t0))
+    _require_learning("organelles", rec.losses)
+    if cfg.mpath_organelles != cfg.model_target("organelles"):
+        raise AssertionError("the trained organelles model is not the configuration's")
+    log("slice training organelles " + json.dumps(res))
+    out["organelles"] = res
+    model, params = load_model(cfg.mpath_organelles)
+    if model.features != tuple(unet_variants("organelles")["features"]):
+        raise AssertionError(f"organelles trained at {model.features}")
+
+    # where a step's time goes: the same step, synchronised around each part
+    st = mtrain.make_train_state(model, None, device=dev)
+    rng = np.random.default_rng(5)
+    parts = {"sample": [], "forward": [], "backward": [], "optimizer": []}
+    lab = np.zeros(world["raw"].shape, np.int32)
+    for c, co in enumerate(("mi", "vc", "sj"), start=1):
+        lab[world[co] > 0] = c
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        offs = [[int(rng.integers(0, s - t + 1)) for s, t in zip(world["raw"].shape, tile)]
+                for _ in range(batch)]
+        x = np.stack([world["raw"][o[0]:o[0] + tile[0], o[1]:o[1] + tile[1],
+                                   o[2]:o[2] + tile[2], None] for o in offs]).astype(np.float32)
+        y = np.stack([lab[o[0]:o[0] + tile[0], o[1]:o[1] + tile[1], o[2]:o[2] + tile[2]]
+                      for o in offs])
+        xt = torch.from_numpy(x).to(dev)
+        yt = torch.from_numpy(y).to(dev, torch.int64)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = mtrain.softmax_xent_loss(st.model(xt), yt)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        st.apply_gradients()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for k, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            parts[k].append(v * 1e3)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        loss = mtrain.softmax_xent_loss(st.model(xt), yt)
+        loss.backward()
+        st.apply_gradients()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if getattr(e, "device_time_total", 0.0) > 0]
+    dev_ms = sum(e.self_device_time_total for e in evs) / 1e3
+    top = [(e.key[:50], round(e.self_device_time_total / 1e3, 4), e.count)
+           for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:8]]
+    breakdown = {k: float(np.median(v[1:])) for k, v in parts.items()}
+    log("slice training organelles step breakdown (synchronised ms) " + json.dumps(
+        dict(breakdown, profiled_device_ms=dev_ms, top_kernels=top)))
+    out["organelles"]["breakdown"] = breakdown
+    del st
+    model.cpu()
+
+    # 2. myelin at mag 4, calibrated on the card inside the trainer
+    cal = {}
+    orig_cal = toy.calibrate_binary_threshold
+
+    def timed_cal(m, p, raws, targets, device=None):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        thr, iou = orig_cal(m, p, raws, targets, device=device)
+        torch.cuda.synchronize()
+        cal.update(seconds=time.perf_counter() - t0, launches=dict(LAUNCHES), params=p,
+                   raws=[np.array(r) for r in raws], threshold=thr, iou=iou)
+        return thr, iou
+
+    toy.calibrate_binary_threshold = timed_cal
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with _StepRecorder() as rec:
+            toy.train_toy_dense_models(world, steps=TRAIN_STEPS, batch=batch,
+                                       tasks=("myelin",), device=dev)
+    finally:
+        toy.calibrate_binary_threshold = orig_cal
+    mag_tile = tuple(int(s) for s in np.asarray(world["raw"].shape) // 4)
+    res = rec.summary(batch, int(np.prod(mag_tile)))
+    res.update(seconds=time.perf_counter() - t0, peak_bytes=int(torch.cuda.max_memory_allocated()))
+    _require_learning("myelin", rec.losses)
+    mmodel, mparams = load_model(cfg.model_target("myelin"))
+    meta = load_model_meta(cfg.model_target("myelin"))
+    if meta.get("mag") != 4 or meta.get("threshold") != cal["threshold"]:
+        raise AssertionError(f"myelin meta {meta} against calibration {cal['threshold']}")
+    raw4 = cal["raws"][0]
+    ctile = tuple(int(t) for t in np.minimum((128, 128, 64), raw4.shape))
+    n_tiles = int(np.prod(-(-np.asarray(raw4.shape) // np.asarray(ctile)))) * len(cal["raws"])
+    for k, per in _per_tile(mmodel).items():
+        if cal["launches"][k] != n_tiles * per or per <= 0:
+            raise AssertionError(f"myelin calibration: {k} launched {cal['launches'][k]} times, "
+                                 f"expected {n_tiles} tiles x {per}")
+        launches[k] += cal["launches"][k]
+    probs = {}
+    for name, p, d in (("trained", cal["params"], dev), ("plain", cal["params"], "cpu"),
+                       ("initial", init_model_params(UNet3D(**unet_variants("myelin")), seed=0),
+                        dev)):
+        probs[name] = DenseTilePredictor(mmodel, p, tile_shape=ctile, halo=(16, 16, 8),
+                                         mode="probs", device=d).predict_array(raw4)
+    budget = _probs_budget(probs["trained"], probs["plain"], "myelin calibration")
+    stale = float(np.mean(probs["trained"] != probs["initial"]))
+    if stale < 0.5:
+        raise AssertionError(f"myelin calibration: only {stale:.3f} of the probabilities differ "
+                             f"from those of the initial weights")
+    saved = mparams["ConvBlock_0"]["Conv_0"]["kernel"]
+    if not np.array_equal(saved, cal["params"]["ConvBlock_0"]["Conv_0"]["kernel"]):
+        raise AssertionError("myelin: the calibrated weights are not the saved ones")
+    _layers_alone(dev, mmodel, mparams, _first_tile(raw4, ctile, (16, 16, 8)),
+                  "myelin calibration tile")
+    res.update(threshold=cal["threshold"], calib_iou=cal["iou"], calib_seconds=cal["seconds"],
+               calib_tiles=n_tiles, calib_launches=cal["launches"], card_vs_plain=budget,
+               share_differing_from_initial=stale, train_tile=list(mag_tile))
+    log("slice training myelin " + json.dumps(res))
+    out["myelin"] = res
+
+    # 3. one step, card against CPU, from the same init and batch
+    x = np.stack([world["raw"][o:o + 64, o:o + 64, :32, None] for o in (0, 40)]).astype(np.float32)
+    y = np.stack([lab[o:o + 64, o:o + 64, :32] for o in (0, 40)])
+
+    out["step_unet"] = _step_card_vs_cpu(dev, "organelles U-Net",
+                                         lambda: UNet3D(**unet_variants("organelles")), (x, y),
+                                         mtrain.make_train_step)
+    prng = np.random.default_rng(7)
+    pts = prng.normal(size=(POINT_STEP["batch"], POINT_STEP["npoints"], 7)).astype(np.float32)
+    pts[..., 3:] = np.eye(4, dtype=np.float32)[prng.integers(0, 4, pts.shape[:2])]
+
+    out["step_points"] = _step_card_vs_cpu(
+        dev, "celltype point net", lambda: PointClassNet(n_classes=8),
+        (pts, prng.integers(0, 8, POINT_STEP["batch"]).astype(np.int32)),
+        lambda: mtrain.make_class_train_step(dict_output=True))
+    ws = VIEW_STEP["ws"]
+    views = prng.integers(0, 256, (VIEW_STEP["batch"], VIEW_STEP["nb_views"], ws[0], ws[1], 4)
+                          ).astype(np.float32)
+
+    out["step_views"] = _step_card_vs_cpu(
+        dev, "view celltype CMN", lambda: MultiViewCMN(n_classes=8, widths=VIEW_STEP["widths"]),
+        (views, prng.integers(0, 8, VIEW_STEP["batch"]).astype(np.int32)),
+        mtrain.make_class_train_step)
+
+    # 4. train, then deploy through the configuration
+    def deploy(what):
+        omodel, oparams = load_model(cfg.mpath_organelles)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        st = exec_dense_prediction.predict_cellorganelles(mag=1, device=dev, show_progress=False)
+        got = dict(LAUNCHES)
+        for k, per in _per_tile(omodel).items():
+            if got[k] <= 0 or got[k] != st["dispatches"] * per:
+                raise AssertionError(f"{what} deployment: {k} launched {got[k]} times, "
+                                     f"expected {st['dispatches']} dispatches x {per}")
+            launches[k] += got[k]
+        ts, halo = exec_dense_prediction._tile_params(cfg.kd_seg_path, 1)
+        ref = DenseTilePredictor(omodel, oparams, tile_shape=ts, halo=halo, mode="probs",
+                                 device=dev).predict_array(world["raw"])
+        for co, ch in (("mi", 1), ("vc", 2), ("sj", 3)):
+            m = ChunkedVolume.open(getattr(cfg, f"kd_{co}_path")).load_raw(
+                size=world["raw"].shape)
+            if not np.array_equal(m, ref[..., ch]):
+                raise AssertionError(f"{what} deployment: the {co} map differs from the "
+                                     f"dense predictor's on the same weights")
+        ex = generate_subcell_kd_from_proba("mi", device=dev)
+        _layers_alone(dev, omodel, oparams, _first_tile(world["raw"], ts, halo),
+                      f"{what} deployment tile")
+        r = dict(dispatches=st["dispatches"], seconds=st["seconds"], tile=list(ts),
+                 halo=list(halo), launches=got, mi_objects=ex.get("n_objects"))
+        log(f"slice training deploy {what} " + json.dumps(r))
+        return r
+
+    out["deploy"] = deploy("organelles")
+    t0 = time.perf_counter()
+    with _StepRecorder() as rec:
+        toy.train_toy_dense_models(world, steps=5, tile=tile, batch=batch, tasks=("organelles",),
+                                   variant_overrides={"organelles": START_OVERRIDE}, device=dev)
+    out["deploy_start_override"] = deploy("start.py override")
+    out["deploy_start_override"]["train_seconds"] = time.perf_counter() - t0
+    global_params.wd = None
+    log(f"slice training phase {time.perf_counter() - t_phase:.3f} s")
+    return launches, out
+
+
 def main() -> int:
     import torch
 
@@ -2317,6 +2772,9 @@ def main() -> int:
         phase_reference_step2(dev)
         phase_step2_ops(dev)
         log(f"step 2 phases {time.perf_counter() - t_step2:.3f} s")
+        train_launches, _ = phase_slice_training(dev, work)
+        for k in REPLACES:
+            launches[k] += train_launches[k]
         t_pipe = time.perf_counter()
         pipe_launches = phase_slice_pipeline(dev, work)
         for k in REPLACES:

@@ -263,6 +263,12 @@ class Config:
         path = os.path.join(self.model_dir, name)
         return path if model_exists(path) else packaged_model_path(name)
 
+    def model_target(self, name: str) -> str:
+        """Where a model named ``name`` trained for this working directory is
+        written, ``<wd>/models/<name>`` (the JAX package's ``mpath_*``):
+        the ``mpath_*`` properties name the packaged weights until then."""
+        return os.path.join(self.model_dir, name)
+
     @property
     def mpath_spiness(self) -> str:
         return self._mpath("spiness")

@@ -29,28 +29,15 @@ from __future__ import annotations
 
 from typing import Dict, Sequence
 
-import math
-
 import torch
 import torch.nn as nn
 
-from .unet3d import LayerNorm
+from .unet3d import LayerNorm, flax_gelu
 
 __all__ = ["PointClassNet", "PointSegNet", "knn_group", "knn_indices", "flax_gelu"]
 
 _BF16 = torch.bfloat16
 
-
-def flax_gelu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.gelu(x, approximate=True)`` op by op in ``x``'s dtype, its
-    constants rounded to that dtype first, as XLA evaluates it:
-    ``x * (0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x**3))))``."""
-    def const(v):
-        return torch.tensor(v, dtype=x.dtype, device=x.device)
-
-    inner = x + const(0.044715) * x ** 3
-    cdf = const(0.5) * (const(1.0) + torch.tanh(const(math.sqrt(2.0 / math.pi)) * inner))
-    return x * cdf
 
 
 def knn_indices(xyz: torch.Tensor, k: int) -> torch.Tensor:
@@ -140,6 +127,7 @@ class PointClassNet(nn.Module):
                  embed_dim: int = 0, knn_stages: int = 1, n_global: int = 0, n_in: int = 7):
         super().__init__()
         self.n_classes = int(n_classes)
+        self.widths, self.k, self.knn_stages = tuple(int(w) for w in widths), int(k), int(knn_stages)
         self.embed_dim = int(embed_dim)
         self.n_global = int(n_global)
         self.add_module("_PointBackbone_0", _PointBackbone(n_in, widths, k, knn_stages))
@@ -156,6 +144,12 @@ class PointClassNet(nn.Module):
         self.cls_head = Dense(256, self.n_classes, torch.float32)
         if self.embed_dim > 0:
             self.embed_head = Dense(256, self.embed_dim, torch.float32)
+
+    def arch_kwargs(self) -> dict:
+        """The flax module's fields, in their order (``arch.json``)."""
+        return {"n_classes": self.n_classes, "widths": list(self.widths), "k": self.k,
+                "embed_dim": self.embed_dim, "dtype": "bfloat16", "knn_stages": self.knn_stages,
+                "n_global": self.n_global}
 
     def forward(self, pts: torch.Tensor) -> Dict[str, torch.Tensor]:
         scal = None
@@ -183,11 +177,17 @@ class PointSegNet(nn.Module):
                  knn_stages: int = 1, n_in: int = 7):
         super().__init__()
         self.n_classes = int(n_classes)
+        self.widths, self.k, self.knn_stages = tuple(int(w) for w in widths), int(k), int(knn_stages)
         self.add_module("_PointBackbone_0", _PointBackbone(n_in, widths, k, knn_stages))
         c = self._PointBackbone_0.out_channels
         self.Dense_0 = Dense(2 * c, 128)
         self.LayerNorm_0 = LayerNorm(128)
         self.seg_head = Dense(128, self.n_classes, torch.float32)
+
+    def arch_kwargs(self) -> dict:
+        """The flax module's fields, in their order (``arch.json``)."""
+        return {"n_classes": self.n_classes, "widths": list(self.widths), "k": self.k,
+                "dtype": "bfloat16", "knn_stages": self.knn_stages}
 
     def forward(self, pts: torch.Tensor) -> torch.Tensor:
         h = self._PointBackbone_0(pts)

@@ -7,7 +7,9 @@ dtypes follow the JAX package: channels-last ``(B, X, Y, Z, C)``, bf16
 activations, f32 parameters and logits. Convolutions compute in f32 on
 bf16-rounded operands and round their output to bf16 before the bf16 bias
 add; the ConvBlock does LayerNorm in f32, casts to bf16 and then applies
-tanh-GELU in bf16, as the flax ``ConvBlock`` does (``unet3d.py:64-65``).
+tanh-GELU op by op in bf16 (:func:`flax_gelu`), as XLA evaluates the flax
+``ConvBlock``'s ``nn.gelu`` (``unet3d.py:64-65``), so that a training step's
+forward and gradients follow flax's ``value_and_grad``.
 """
 
 from __future__ import annotations
@@ -20,9 +22,22 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ["UNet3D", "ConvBlock", "unet_variants", "space_to_depth", "depth_to_space"]
+__all__ = ["UNet3D", "ConvBlock", "unet_variants", "space_to_depth", "depth_to_space",
+           "flax_gelu"]
 
 _BF16 = torch.bfloat16
+
+
+def flax_gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)`` op by op in ``x``'s dtype, its
+    constants rounded to that dtype first, as XLA evaluates it:
+    ``x * (0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x**3))))``."""
+    def const(v):
+        return torch.tensor(v, dtype=x.dtype, device=x.device)
+
+    inner = x + const(0.044715) * x ** 3
+    cdf = const(0.5) * (const(1.0) + torch.tanh(const(math.sqrt(2.0 / math.pi)) * inner))
+    return x * cdf
 
 
 def space_to_depth(x: torch.Tensor, p: Tuple[int, int, int]) -> torch.Tensor:
@@ -124,8 +139,7 @@ class ConvBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(2):
             x = getattr(self, f"Conv_{i}")(x)
-            x = getattr(self, f"LayerNorm_{i}")(x).to(_BF16)
-            x = F.gelu(x, approximate="tanh")
+            x = flax_gelu(getattr(self, f"LayerNorm_{i}")(x).to(_BF16))
         return x
 
 
@@ -172,6 +186,12 @@ class UNet3D(nn.Module):
                 fan_in = m.weight[0].numel()
                 with torch.no_grad():
                     m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=gen)
+
+    def arch_kwargs(self) -> dict:
+        """The flax module's fields, as the JAX package's ``save_model``
+        writes them into ``arch.json``."""
+        return {"features": list(self.features), "strides": [list(s) for s in self.strides],
+                "patch": list(self.patch), "n_classes": self.n_classes, "dtype": "bfloat16"}
 
     def forward(self, x: torch.Tensor, full_res: bool = True) -> torch.Tensor:
         """x: (B, X, Y, Z, 1) raw voxels (uint8 value range). Returns

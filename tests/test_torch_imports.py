@@ -1,4 +1,4 @@
-"""The port imports nothing of JAX, flax, msgpack, PyYAML, networkx,
+"""The port imports nothing of JAX, flax, optax, msgpack, PyYAML, networkx,
 scikit-learn, matplotlib or the JAX package, and its entry points refuse to
 run silently on the CPU."""
 
@@ -15,8 +15,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "msgpack", "syconn_tpu", "zstandard", "yaml", "h5py",
-             "tqdm", "networkx", "sklearn", "matplotlib"):
+for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "syconn_tpu", "zstandard", "yaml",
+             "h5py", "tqdm", "networkx", "sklearn", "matplotlib"):
     sys.modules[name] = None
 sys.path.insert(0, {root!r})
 import syconn_tpu_torch
@@ -25,8 +25,8 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 bad = [m for m in sys.modules
-       if m.split(".")[0] in ("jax", "flax", "msgpack", "syconn_tpu", "h5py", "tqdm", "networkx",
-                              "sklearn", "matplotlib")
+       if m.split(".")[0] in ("jax", "flax", "optax", "msgpack", "syconn_tpu", "h5py", "tqdm",
+                              "networkx", "sklearn", "matplotlib")
        and sys.modules[m] is not None]
 assert not bad, bad
 print(len(names))
@@ -40,7 +40,12 @@ def test_port_imports_without_jax_flax_msgpack_or_reference():
     import syconn_tpu_torch
 
     n = len(list(pkgutil.walk_packages(syconn_tpu_torch.__path__, "syconn_tpu_torch.")))
-    assert int(out.stdout.strip().splitlines()[-1]) == n >= 83
+    assert int(out.stdout.strip().splitlines()[-1]) == n >= 97
+    names = {m.name for m in pkgutil.walk_packages(syconn_tpu_torch.__path__, "syconn_tpu_torch.")}
+    assert {f"syconn_tpu_torch.{m}" for m in (
+        "models.train", "models.traindata", "utils.testdata", "utils.testdata_neuro",
+        "utils.quality_metrics", "proc.stats", "cnn.toy", "cnn.toy_points", "cnn.train_dense",
+        "cnn.train_points", "cnn.train_views", "cnn.calibrate", "cnn.train_pretrained")} <= names
 
 
 def test_entry_points_without_device_raise(monkeypatch, tmp_path):
@@ -233,3 +238,32 @@ def test_config_driven_entry_points_without_device_raise(monkeypatch, tmp_path):
                                  device="cpu")
     assert counts["sv"] == 2 and counts["mi"] == counts["vc"] == 0
     assert res["n_cs"] == 1
+
+
+def test_training_entry_points_without_device_raise(monkeypatch):
+    """The training entry points: CUDA or ``device="cpu"``."""
+    from syconn_tpu_torch.cnn.toy import calibrate_binary_threshold, train_toy_dense_models
+    from syconn_tpu_torch.cnn.toy_points import eval_toy_point_models, train_toy_point_models
+    from syconn_tpu_torch.cnn.train_views import (harvest_view_pools, make_view_train_state,
+                                                  train_view_classifier)
+    from syconn_tpu_torch.models.io import load_model, packaged_model_path
+    from syconn_tpu_torch.models.pointnet import PointClassNet
+    from syconn_tpu_torch.models.train import make_train_state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model, params = load_model(packaged_model_path("myelin"))
+    raw = np.zeros((32, 32, 16), np.uint8)
+    world = {"raw": raw}
+    calls = [lambda **kw: make_train_state(PointClassNet(widths=(8,)), (1, 8, 7), **kw),
+             lambda **kw: make_view_train_state(PointClassNet(widths=(8,)), 1e-3, 4, **kw),
+             lambda **kw: calibrate_binary_threshold(model, params, [raw], [raw], **kw),
+             lambda **kw: train_toy_dense_models(world, steps=1, **kw),
+             lambda **kw: train_toy_point_models([], steps=1, **kw),
+             lambda **kw: train_view_classifier(np.zeros((4, 2, 8, 8, 4), np.uint8),
+                                                np.zeros(4, np.int32), 2, steps=1, **kw),
+             lambda **kw: eval_toy_point_models({"celltype_gt": np.zeros(2, np.int8)}, **kw),
+             lambda **kw: harvest_view_pools([], **kw)]
+    for call in calls:
+        for kw in ({}, {"device": "cuda"}):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                call(**kw)

@@ -555,3 +555,51 @@ def test_view_net_card_matches_cpu(dev, name):
     rel = (got - ref).abs() / ref.abs().clamp_min(1e-2)
     assert bool(torch.isfinite(got).all()) and float(rel.median()) < 3e-2
     assert float((got.argmax(-1) != ref.argmax(-1)).float().mean()) < 2e-2
+
+
+@pytest.mark.parametrize("kind", ["unet", "points", "views"])
+def test_train_step_card_matches_cpu(dev, kind):
+    """One step of ``models/train.py`` from the same seed initialisation and
+    batch on the card and on the CPU: losses within 1e-2 relative, and the
+    updated parameters with a median relative difference below 1e-6 (Adam's
+    first step moves each parameter by about the learning rate times its
+    gradient's sign; a sign that differs moves one by twice the rate)."""
+    from syconn_tpu_torch.models.cmn import MultiViewCMN
+    from syconn_tpu_torch.models.convert import flax_tree_from_module
+    from syconn_tpu_torch.models.pointnet import PointClassNet
+    from syconn_tpu_torch.models.train import (make_class_train_step, make_train_state,
+                                               make_train_step)
+    from syconn_tpu_torch.models.unet3d import UNet3D
+
+    rng = np.random.default_rng(3)
+    if kind == "unet":
+        build = lambda: UNet3D(features=(32, 64), strides=((2, 2, 2),), patch=(2, 2, 2),  # noqa: E731
+                               n_classes=4)
+        batch = (rng.integers(0, 255, (2, 32, 32, 16, 1)).astype(np.float32),
+                 rng.integers(-1, 4, (2, 32, 32, 16)).astype(np.int32))
+        step = make_train_step
+    elif kind == "points":
+        build = lambda: PointClassNet(n_classes=8, widths=(32, 64))  # noqa: E731
+        batch = (rng.normal(size=(4, 256, 7)).astype(np.float32),
+                 np.array([0, 1, 3, 7], np.int32))
+        step = lambda: make_class_train_step(dict_output=True)  # noqa: E731
+    else:
+        build = lambda: MultiViewCMN(n_classes=8, widths=(16, 32, 64))  # noqa: E731
+        batch = (rng.integers(0, 255, (4, 2, 64, 32, 4)).astype(np.float32),
+                 np.array([0, 1, 3, 7], np.int32))
+        step = make_class_train_step
+    out = []
+    for d in ("cpu", dev):
+        state = make_train_state(build(), None, learning_rate=1e-3, seed=4, device=d)
+        state, m = step()(state, *batch)
+        out.append((float(m["loss"]), flax_tree_from_module(state.model)))
+    (lc, pc), (lg, pg) = out
+    assert np.isfinite(lg) and abs(lg / lc - 1) < 1e-2
+
+    def leaves(tree):
+        for v in tree.values():
+            yield from leaves(v) if isinstance(v, dict) else [v]
+
+    rel = np.concatenate([(np.abs(g - c) / np.maximum(np.abs(c), 1e-3)).ravel()
+                          for g, c in zip(leaves(pg), leaves(pc))])
+    assert np.median(rel) < 1e-6
