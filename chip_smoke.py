@@ -86,15 +86,24 @@ Phases, each failing the run on error:
      frames/s, peak memory), card against CPU (depth and index views
      equal), and the five view nets at the inference functions' widths (forward ms a
      batch of 8, logits card against CPU within the dense budget);
- 13. the view route (``phase_slice_views``, last): steps 7-9 with
+ 13. the view route (``phase_slice_views``): steps 7-9 with
      ``use_point_models: False`` on a copy of the pipeline's cells
      (rendering, the axoness semseg with the per-location average, the
      embedding, cell types, the astrocyte components' views and glia
      probabilities), per-stage seconds and busy shares, the outputs checked
-     per cell and card against CPU on 5 cells.
+     per cell and card against CPU on 5 cells;
+ 14. the pipeline driver (``phase_slice_driver``, last): the device world
+     generator card against CPU, then ``examples/start.py``'s ``main`` on the
+     card twice: run A on a 512x512x256 Voronoi world of 16 cells from the
+     device generator with ``--predict_organelles`` (every step, seconds per
+     step and per gigavoxel), run B on the quality fixture (a 160x160x80
+     neuron world of 8 cells) and its scores; in each the organelles and
+     myelin U-Nets' conv launches equal dispatches x launches a tile, the
+     contact kernel's launches equal the chunks, and every cell, synapse
+     and matrix row is checked.
 
 Phase 4's reference check also holds the organelles U-Net, layer by layer
-and end to end, to its own budget (``ORG_BUDGET``).
+and end to end, to its own budget (``ORG_BUDGET``), on two seeded inputs.
 
 The line before last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Exits non-zero without a result
@@ -135,6 +144,9 @@ CONTACT_REPLACES = "syconn_tpu/ops/contacts_pallas.py:45"
 # (label, seg shape incl. halo, stencil, tile_xy, K, label block, on the main path)
 CONTACT_SHAPES = [
     ("deployment", (268, 268, 134), (13, 13, 7), (32, 32), 32, (48, 48, 96), True),
+    # the driver's step 6: the default 128x128x64 chunk plus halo; blocks of
+    # half the driver world's mean supervoxel (67.1 MVx / (16 cells x 3))
+    ("driver", (140, 140, 70), (13, 13, 7), (32, 32), 32, (112, 112, 56), True),
     ("awkward", (200, 136, 72), (5, 5, 3), (32, 32), 8, (24, 24, 36), False),
     # deployment stencil, tile and K on labels dense enough for ~22 live
     # candidates per column (2 of 64 columns overflow)
@@ -431,13 +443,16 @@ def phase_contact_kernels(dev, shapes=None):
     import torch
 
     from syconn_tpu_torch.ops import contacts_cuda as CC
+    from syconn_tpu_torch.ops.contacts_torch import column_tables
 
     int_max = np.iinfo(np.int32).max
     rows = []
     for label, shape, stencil, tile_xy, K, block, main in shapes or CONTACT_SHAPES:
         seg = blocky_labels(shape, block, seed=11)
-        seg_p, offs, cands, overflow, _ = CC._columns_prep(seg, stencil, tile_xy, K)
-        args = [torch.from_numpy(a).to(dev) for a in (seg_p, offs, cands)]
+        seg_p, offs, cands, overflow = column_tables(
+            torch.from_numpy(seg.astype(np.int32)).to(dev), stencil, tile_xy, K)
+        args = [seg_p, offs, cands]
+        cands, overflow = cands.cpu().numpy(), overflow.cpu().numpy()
         lo, hi = CC.detect_cs_columns(*args, stencil, tile_xy)
         if dev.type == "cuda":
             torch.cuda.synchronize()
@@ -450,7 +465,7 @@ def phase_contact_kernels(dev, shapes=None):
         live = (cands != int_max).sum(axis=1)
         n_out = int(np.prod(lo.shape))
         ops = int(lo.shape[1] * lo.shape[2] * lo.shape[3] * int(live.sum())) * CANDIDATE_STEP_OPS
-        nbytes = seg_p.nbytes + 2 * 4 * n_out
+        nbytes = seg_p.numel() * 4 + 2 * 4 * n_out
         bound_o = ops / PEAK_INT32 * 1e3
         bound_b = nbytes / PEAK_BYTES * 1e3
         k_ms = cuda_ms(lambda: CC.detect_cs_columns(*args, stencil, tile_xy))
@@ -619,13 +634,11 @@ def phase_slice_contacts(dev, work: str, sym_path=None, asym_path=None,
         peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
         resident.clear()
         st = res["stats"]
-        if st["path"] != mode or st["dispatched"] != n_chunks or (
-                mode == "stream" and st["host_chunks"] != 0):
+        if st["path"] != mode or st["dispatched"] != n_chunks or st["host_chunks"] != 0:
             raise AssertionError(f"contacts {mode}: took path {st['path']}, dispatched "
                                  f"{st['dispatched']} of {n_chunks} chunks, host {st['host_chunks']}")
-        if mode == "stream" and dev.type == "cuda" and not (
-                counts["detect_cs_columns"] == st["dispatched"] > 0):
-            raise AssertionError(f"contacts stream: kernel launched {counts['detect_cs_columns']} "
+        if dev.type == "cuda" and not (counts["detect_cs_columns"] == st["dispatched"] > 0):
+            raise AssertionError(f"contacts {mode}: kernel launched {counts['detect_cs_columns']} "
                                  f"times for {st['dispatched']} dispatched chunks")
         line = dict(st, n_cs=res["n_cs"], n_syn=res["n_syn"], peak_bytes=int(peak),
                     launches=counts["detect_cs_columns"],
@@ -633,18 +646,20 @@ def phase_slice_contacts(dev, work: str, sym_path=None, asym_path=None,
                     overflow_share=st["overflow_columns"] / max(1, st["columns"]))
         runs[mode] = (res, _load_labels(out_dir, shape), line)
         log(f"slice contacts {mode} " + json.dumps(line))
-    (rs, vs, ls), (rr, vr, _) = runs["stream"], runs["resident"]
+    (rs, vs, ls), (rr, vr, lr) = runs["stream"], runs["resident"]
     for n in ("cs", "syn"):
         if not vs[n].any() or not np.array_equal(vs[n], vr[n]):
             raise AssertionError(f"contacts: {n}_seg empty or streaming != resident")
     if (rs["n_cs"], rs["n_syn"]) != (rr["n_cs"], rr["n_syn"]) or min(rs["n_cs"], rs["n_syn"]) <= 0:
         raise AssertionError(f"contacts: counts stream {rs['n_cs']}/{rs['n_syn']} != resident "
                              f"{rr['n_cs']}/{rr['n_syn']}")
-    if ls["overflow_columns"] <= 0:
-        raise AssertionError("contacts: no column overflowed, the patch route did not run")
+    if not lr["overflow_columns"] == ls["overflow_columns"] > 0:
+        raise AssertionError(f"contacts: overflow columns stream {ls['overflow_columns']}, "
+                             f"resident {lr['overflow_columns']}: the patch route did not run "
+                             f"on both, or not on the same columns")
     log(f"slice contacts: streaming == resident, {rs['n_cs']} cs, {rs['n_syn']} syn, "
         f"overflow columns {ls['overflow_columns']}/{ls['columns']}")
-    return ls
+    return dict(ls, launches=ls["launches"] + lr["launches"])
 
 
 def phase_reference_contacts(dev, work: str):
@@ -694,7 +709,7 @@ def phase_reference(dev):
     small input: syntype's uint8 probabilities within 2 LSB on >= 99.9% of
     voxels; the organelles U-Net layer by layer (each layer alone within the
     conv tolerance, softmax and rounding within 1 LSB) and its probabilities
-    within ORG_BUDGET."""
+    within ORG_BUDGET on that input and on a second seeded one."""
     import numpy as np
 
     from syconn_tpu_torch.inference.dense import DenseTilePredictor
@@ -727,19 +742,25 @@ def phase_reference(dev):
     if bad or rows[-1]["max_lsb"] > 1:
         raise AssertionError(f"organelles: layers {bad} (alone) beyond the conv tolerance, or "
                              f"softmax/round {rows[-1]['max_lsb']} LSB apart on the same logits")
+    # the probabilities against ORG_BUDGET on the input of the budget's
+    # derivation and on a second seeded input of the same kind
     kw = dict(tile_shape=(64, 64, 32), halo=(16, 16, 8), mode="probs")
-    got = DenseTilePredictor(model, params, device=dev, **kw).predict_array(vol)
-    ref = DenseTilePredictor(model, params, device="cpu", **kw).predict_array(vol)
-    d = np.abs(got.astype(np.int16) - ref.astype(np.int16))
-    org = dict(max_abs_lsb=int(d.max()), within_2_lsb=float(np.mean(d <= 2)),
-               within_8_lsb=float(np.mean(d <= 8)),
-               argmax_stable=float(np.mean(got.argmax(-1) == ref.argmax(-1))),
-               max_prob=int(ref.max()), share_above_250=float(np.mean(ref.max(-1) > 250)),
-               budget=ORG_BUDGET)
-    log("reference organelles probs: " + json.dumps(org))
-    if org["within_2_lsb"] < ORG_BUDGET["within_2_lsb"] or \
-            org["argmax_stable"] < ORG_BUDGET["argmax_stable"]:
-        raise AssertionError(f"organelles kernel path vs plain CPU path beyond its budget: {org}")
+    inputs = {"seed 1": vol, "seed 2": np.random.default_rng(2).integers(
+        0, 256, (64, 64, 32), dtype=np.uint8)}
+    for name, x in inputs.items():
+        got = DenseTilePredictor(model, params, device=dev, **kw).predict_array(x)
+        ref = DenseTilePredictor(model, params, device="cpu", **kw).predict_array(x)
+        d = np.abs(got.astype(np.int16) - ref.astype(np.int16))
+        org = dict(input=name, max_abs_lsb=int(d.max()), within_2_lsb=float(np.mean(d <= 2)),
+                   within_8_lsb=float(np.mean(d <= 8)),
+                   argmax_stable=float(np.mean(got.argmax(-1) == ref.argmax(-1))),
+                   max_prob=int(ref.max()), share_above_250=float(np.mean(ref.max(-1) > 250)),
+                   budget=ORG_BUDGET)
+        log("reference organelles probs: " + json.dumps(org))
+        if org["within_2_lsb"] < ORG_BUDGET["within_2_lsb"] or \
+                org["argmax_stable"] < ORG_BUDGET["argmax_stable"]:
+            raise AssertionError(f"organelles kernel path vs plain CPU path beyond its budget "
+                                 f"on input {name}: {org}")
     return ok
 
 
@@ -2707,6 +2728,214 @@ def phase_slice_training(dev, work: str):
     return launches, out
 
 
+DRIVER_A = ["--shape", "512", "512", "256", "--n_cells", "16", "--seed", "0",
+            "--predict_organelles", "--overwrite"]
+DRIVER_GEN_CHECK = dict(shape=(128, 128, 64), n_cells=6, seed=4)
+DRIVER_CS_WINDOWS = 4
+QUALITY = dict(seed=777, shape=(160, 160, 80), n_cells=8)
+SCORE_GROUPS = ("synapses", "celltype", "celltype_views", "compartments", "spinehead", "myelin")
+
+
+def _check_driver_outputs(wd: str, what: str) -> dict:
+    """Every cell of a driver run has its cell type, embedding and skeleton
+    axoness and myelin; ``syn_ssv`` is not empty, and the matrix has one row
+    for each synapse whose ``syn_prob`` reaches ``thresh_synssv_proba``."""
+    import numpy as np
+
+    from syconn_tpu_torch import global_params
+    from syconn_tpu_torch.reps.segmentation import SegmentationDataset
+    from syconn_tpu_torch.reps.super_segmentation import SuperSegmentationDataset
+
+    global_params.wd = wd
+    ssd = SuperSegmentationDataset(working_dir=wd)
+    if len(ssd.ssv_ids) == 0:
+        raise AssertionError(f"driver {what}: no cells")
+    for i in ssd.ssv_ids:
+        ssv = ssd.get_super_segmentation_object(int(i))
+        ssv.load_attr_dict()
+        missing = [k for k in ("celltype_cnn_e3", "latent_morph") if k not in ssv.attr_dict]
+        if missing or not ssv.load_skeleton() or any(
+                k not in ssv.skeleton for k in ("axoness", "myelin")):
+            raise AssertionError(f"driver {what}: cell {int(i)} lacks {missing} or its "
+                                 "skeleton's axoness/myelin")
+    sd = SegmentationDataset("syn_ssv", working_dir=wd)
+    prob = np.asarray(sd.load_numpy_data("syn_prob"))
+    thr = float(global_params.config["cell_objects"]["thresh_synssv_proba"])
+    with open(os.path.join(wd, "connectivity_matrix", "conn_mat.csv")) as f:
+        rows = len(f.read().splitlines()) - 1
+    if len(sd.ids) == 0 or rows != int(np.sum(prob >= thr)):
+        raise AssertionError(f"driver {what}: {len(sd.ids)} syn_ssv, {rows} matrix rows for "
+                             f"{int(np.sum(prob >= thr))} with syn_prob >= {thr}")
+    return dict(cells=int(len(ssd.ssv_ids)), syn_ssv=int(len(sd.ids)), matrix_rows=rows)
+
+
+def _check_driver_contacts(dev, what: str, chunk) -> dict:
+    """Step 6 of a driver run on its own windows: every chunk of the
+    resident segmentation through ``ResidentCsDetector`` on the card (the
+    hand-written kernel, tables built on the card, overflowing columns
+    patched) equals the exact host kernel on the same window, and on the
+    ``DRIVER_CS_WINDOWS`` most label-rich windows ``detect_cs_columns_device``
+    on the card equals its plain version on the CPU (partners and overflow
+    flags). Exact: every value is a label."""
+    import numpy as np
+    import torch
+
+    from syconn_tpu_torch import global_params
+    from syconn_tpu_torch.io import resident
+    from syconn_tpu_torch.ops.contacts import detect_cs
+    from syconn_tpu_torch.ops.contacts_cuda import detect_cs_columns
+    from syconn_tpu_torch.ops.contacts_torch import (ResidentCsDetector, column_tables,
+                                                     detect_cs_columns_device)
+
+    cfg = global_params.config
+    stencil = tuple(int(s) for s in cfg["cell_objects"]["cs_filtersize"])
+    seg = resident.get(cfg.kd_seg_path, "seg", 1)
+    if seg is None or seg.device.type != "cuda":
+        raise AssertionError(f"driver {what}: the segmentation is not resident on the card")
+    t0 = time.perf_counter()
+    det = ResidentCsDetector(seg, chunk=tuple(int(c) for c in chunk), stencil=stencil)
+    if det.kernel != "cuda":
+        raise AssertionError(f"driver {what}: the resident detector took {det.kernel}")
+    cixs = [(x, y, z) for x in range(det.grid[0]) for y in range(det.grid[1])
+            for z in range(det.grid[2])]
+    n_labels, n_contacts = [], 0
+    for cix in cixs:
+        win = det.window(cix)
+        packed, _ = det.fetch(det.dispatch(cix))
+        host = detect_cs(win.cpu().numpy().astype(np.uint32), stencil=stencil)
+        host = host[:packed.shape[0], :packed.shape[1], :packed.shape[2]]
+        if not np.array_equal(packed, host):
+            raise AssertionError(f"driver {what}: chunk {cix} on the card differs from the host "
+                                 f"kernel on {int((packed != host).sum())} voxels")
+        n_contacts += int((packed != 0).sum())
+        n_labels.append(int(torch.unique(win).numel()))
+    if n_contacts == 0:
+        raise AssertionError(f"driver {what}: no contact voxel in any chunk")
+    rich = sorted(range(len(cixs)), key=lambda i: -n_labels[i])[:DRIVER_CS_WINDOWS]
+    for i in rich:
+        win = det.window(cixs[i])
+        p_c, o_c = detect_cs_columns_device(win, stencil)
+        p_p, o_p = detect_cs_columns_device(win.cpu(), stencil)
+        if not (torch.equal(p_c.cpu(), p_p) and torch.equal(o_c.cpu(), o_p)):
+            raise AssertionError(f"driver {what}: detect_cs_columns_device on the card differs "
+                                 f"from the plain version on window {cixs[i]}")
+    # the kernel alone on the most label-rich window
+    args = column_tables(det.window(cixs[rich[0]]), stencil)[:3]
+    live = float((args[2] != np.iinfo(np.int32).max).sum(dim=1).float().mean())
+    k_ms = cuda_ms(lambda: detect_cs_columns(*args, stencil, (32, 32)))
+    return dict(chunks=len(cixs), equal_host_kernel=len(cixs), equal_plain_windows=len(rich),
+                labels_per_window=[min(n_labels), max(n_labels)], contact_voxels=n_contacts,
+                overflow_columns=det.n_overflow, columns=det.n_columns,
+                richest_window=dict(chunk=cixs[rich[0]], live_candidates_per_column=live,
+                                    kernel_ms=k_ms),
+                seconds=time.perf_counter() - t0)
+
+
+def phase_slice_driver(dev, work: str) -> dict:
+    """The pipeline driver on the card, as a user runs it: the device world
+    generator card against CPU on ``DRIVER_GEN_CHECK`` (seg, mi, vc, sj
+    equal), then ``examples.start.main`` for run A (``DRIVER_A``: the
+    512x512x256 Voronoi world from the device generator, organelles
+    predicted) and run B (the quality fixture ``QUALITY``, then its scores;
+    no score is gated: the JAX package's own quality gates are red). Per
+    run: the launches of the organelles and myelin U-Nets' convs equal
+    dispatches x ``PER_TILE``, those of the contact kernel the chunks of
+    ``--chunk_size``; ``timing.json``'s seconds per step and per gigavoxel;
+    the outputs of ``_check_driver_outputs``. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from syconn_tpu_torch import global_params
+    from syconn_tpu_torch.examples import start
+    from syconn_tpu_torch.io import resident
+    from syconn_tpu_torch.ops.conv3d import LAUNCHES, reset_launch_counts
+    from syconn_tpu_torch.utils.quality_metrics import quality_pipeline_argv, score_all
+    from syconn_tpu_torch.utils.testdata import generate_toy_world
+
+    t0 = time.perf_counter()
+    card = generate_toy_world(**DRIVER_GEN_CHECK, device=dev)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = generate_toy_world(**DRIVER_GEN_CHECK, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    differ = {k: int(np.sum(card[k] != host[k])) for k in ("seg", "mi", "vc", "sj")}
+    log("slice driver generator " + json.dumps(dict(DRIVER_GEN_CHECK, card_s=t_card,
+                                                    cpu_s=t_cpu, voxels_apart=differ)))
+    if any(differ.values()):
+        raise AssertionError(f"device world generator: card and CPU differ {differ}")
+    del card, host
+
+    launches = {k: 0 for k in LAUNCHES}
+    runs = {"A": ["--working_dir", os.path.join(work, "driver_A"), *DRIVER_A],
+            "B": quality_pipeline_argv(os.path.join(work, "driver_B"), QUALITY["seed"],
+                                       QUALITY["shape"], QUALITY["n_cells"])}
+    runs = {k: v + ["--device", str(dev)] for k, v in runs.items()}
+    for what, argv in runs.items():
+        args = start.parse_args(argv)
+        wd = args.working_dir
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        stats = {}
+        t0 = time.perf_counter()
+        start.main(argv, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+        for k in REPLACES:
+            want = sum(stats[t]["dispatches"] * PER_TILE[t][k] for t in ("organelles", "myelin"))
+            if want <= 0 or counts[k] != want:
+                raise AssertionError(f"driver {what}: {k} launched {counts[k]} times, expected "
+                                     f"{want} (organelles and myelin dispatches x per tile)")
+        chunks = int(np.prod(-(-np.asarray(args.shape) // np.asarray(args.chunk_size))))
+        syn = stats["syn"]["stats"]
+        if not (counts["detect_cs_columns"] == syn["dispatched"] == chunks) or \
+                syn["path"] != "resident" or syn["host_chunks"] != 0:
+            raise AssertionError(f"driver {what}: contact kernel launched "
+                                 f"{counts['detect_cs_columns']} times, {syn['dispatched']} "
+                                 f"chunks dispatched of {chunks} on the {syn['path']} route, "
+                                 f"{syn['host_chunks']} on the host")
+        if what == "A" and stats["world"]["route"] != "device":
+            raise AssertionError(f"driver A: the world came from the {stats['world']['route']}")
+        for k, n in counts.items():
+            launches[k] += n
+        with open(os.path.join(wd, "timing.json")) as f:
+            timing = json.load(f)
+        outputs = _check_driver_outputs(wd, what)
+        cs_check = _check_driver_contacts(dev, what, args.chunk_size)
+        log(f"slice driver {what} contacts " + json.dumps(cs_check))
+        log(f"slice driver {what} " + json.dumps(dict(
+            shape=args.shape, wall_s=wall, world=stats["world"], gvx=timing["gvx"],
+            steps_s=timing["steps_s"],
+            s_per_gvx={k: v / timing["gvx"] for k, v in timing["steps_s"].items()},
+            organelles=dict(route=stats["organelles"]["route"],
+                            dispatches=stats["organelles"]["dispatches"]),
+            myelin=dict(route=stats["myelin"]["route"], dispatches=stats["myelin"]["dispatches"]),
+            contacts=dict(path=syn["path"], dispatched=syn["dispatched"],
+                          host_chunks=syn["host_chunks"], columns=syn["columns"],
+                          overflow_columns=syn["overflow_columns"]),
+            n_syn_ssv=stats["syn"]["n_syn_ssv"], launches=counts, **outputs)))
+        # where the steps' seconds go: step 2's organelle extraction, scan
+        # and analysis, step 6's stages and its contact detection
+        sds = stats["sds"]["stats"]
+        log(f"slice driver {what} stages " + json.dumps(dict(
+            extraction={co: dict(route=e["route"], n_objects=e["n_objects"], seconds=e["seconds"])
+                        for co, e in sds["extraction"].items() if e},
+            scan={k: v for k, v in sds["scan"].items()
+                  if k.endswith("seconds") or k == "cell_route"},
+            dataset_analysis_s=sds["dataset_analysis_seconds"], syn_stages_s=stats["syn"]["stages"],
+            contacts_s={k: syn[k] for k in ("seconds", "detect_seconds", "post_seconds",
+                                            "write_seconds")})))
+    scores = score_all(start.parse_args(runs["B"]).working_dir, device=dev)
+    for group in SCORE_GROUPS:
+        log(f"slice driver B score {group} " + json.dumps(scores.get(group)))
+        if not isinstance(scores.get(group), dict):
+            raise AssertionError(f"quality fixture: no {group} scores")
+    resident.clear()
+    global_params.wd = None
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2804,6 +3033,12 @@ def main() -> int:
         t_views = time.perf_counter()
         phase_slice_views(dev, work, view_ms, frame_ms)
         log(f"slice views phase {time.perf_counter() - t_views:.3f} s")
+        t_driver = time.perf_counter()
+        driver_launches = phase_slice_driver(dev, work)
+        for k in REPLACES:
+            launches[k] += driver_launches[k]
+        contacts["launches"] += driver_launches["detect_cs_columns"]
+        log(f"slice driver phase {time.perf_counter() - t_driver:.3f} s")
     finally:
         resident.clear()
         shutil.rmtree(work, ignore_errors=True)

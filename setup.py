@@ -33,6 +33,7 @@ setup(
         "console_scripts": [
             "syconn.server=syconn_tpu.analysis.server:main",
             "syconn.example=syconn_tpu.examples.start:main",
+            "syconn.example_torch=syconn_tpu_torch.examples.start:main",
         ]
     },
 )

@@ -10,8 +10,10 @@ metrics, and copies the weights into ``syconn_tpu/models/pretrained/``.
 Reference analog: the 22 elektronn3 training scripts (syconn/cnn/cnn_*.py)
 plus the published model zoo; here one driver + the training loops of
 ``models/train.py``, on the card unless ``--device cpu``.
-``--pipeline_worlds`` needs the pipeline script (``examples/start.py``,
-ROADMAP Queue 1 item 17) and raises until it is ported.
+``--pipeline_worlds N`` runs the port's pipeline driver on the quality
+fixture's arguments for the first N training seeds, into
+``<pipe_dir>/seed<N>`` (which ``cnn/train_views.py --pipe_dir`` reads too),
+and trains the point models on the clouds harvested from them as well.
 
 Usage:
     python -m syconn_tpu_torch.cnn.train_pretrained \
@@ -168,10 +170,6 @@ def main(argv=None):
                              "the trained mag from the model meta")
     parser.add_argument("--device", default=None, help="cpu, or the card (default)")
     args = parser.parse_args(argv)
-    if args.pipeline_worlds:
-        from ..utils.quality_metrics import run_quality_pipeline
-
-        run_quality_pipeline(args.pipe_dir, 0)  # raises: ROADMAP Queue 1 item 17
 
     from .. import global_params
     from ..handler.config import generate_default_conf
@@ -213,6 +211,43 @@ def main(argv=None):
         print("dense held-out IoU:", iou, flush=True)
 
     extra = None
+    if args.pipeline_worlds:
+        # reconstruction clouds in the deployment distribution: run the
+        # full pipeline (with the PACKAGED dense models) on training seeds
+        # and harvest mesh-vertex clouds + GT labels from the results
+        from ..utils.quality_metrics import run_quality_pipeline
+        from .toy_points import pipeline_cloud_pools
+
+        pdir = args.pipe_dir or os.path.join(wd, "pipe_worlds")
+        os.makedirs(pdir, exist_ok=True)
+        comp_geom = ((args.comp_npoints, args.comp_ctx)
+                     if args.comp_npoints and args.comp_ctx else None)
+        ct_geom = ((args.ct_npoints, args.ct_ctx)
+                   if args.ct_npoints and args.ct_ctx else None)
+        ep_all, esp_all, esps_all, espg_all = [], [], [], []
+        ecomp_all, ect_all = [], []
+        for s in seeds[: args.pipeline_worlds]:
+            pwd = os.path.join(pdir, f"seed{s}")
+            if not os.path.exists(os.path.join(pwd, "neuron_gt.npz")):
+                t1 = time.time()
+                run_quality_pipeline(pwd, s, shape=tuple(args.shape),
+                                     n_cells=args.n_cells, device=args.device)
+                print(f"pipeline world seed {s}: {time.time() - t1:.0f}s", flush=True)
+            got = pipeline_cloud_pools(pwd, seed=s, comp_geom=comp_geom, ct_geom=ct_geom)
+            ep, esp, esps, espg = got[:4]
+            ep_all.extend(ep)
+            esp_all.extend(esp)
+            esps_all.extend(esps)
+            espg_all.extend(espg)
+            if comp_geom is not None or ct_geom is not None:
+                ecomp_all.extend(got[4])
+            if ct_geom is not None:
+                ect_all.extend(got[5])
+            print(f"pipeline world seed {s}: {len(ep)} cells harvested "
+                  f"({len(esps)} spine-centered spiness pools)", flush=True)
+        extra = (ep_all, esp_all, esps_all, espg_all, ecomp_all, ect_all)
+        global_params.wd = wd  # pipeline_cloud_pools restores, but be sure
+        global_params.config._parse_config()
 
     pts_acc, ev = {}, {}
     if not args.skip_pts:

@@ -193,8 +193,9 @@ def extract_contact_site_tables(
             properties persist in the step cache after its label chunks are
             written.
         kernel: ``"auto"``, ``"cuda"`` or ``"torch"`` choose the device
-            formulation (see ``ops.contacts_torch.CsDispatcher``); ``"host"``
-            runs the exact host kernel on every chunk.
+            formulation (see ``ops.contacts_torch.CsDispatcher`` and
+            ``ResidentCsDetector``); ``"host"`` runs the exact host kernel on
+            every chunk.
         device: ``None`` means the CUDA card (required); ``"cpu"`` runs the
             plain versions.
         cache_root: holds the resume cache (default ``out_dir``).
@@ -337,15 +338,12 @@ def extract_contact_site_tables(
             from ..ops.contacts_torch import ResidentCsDetector
 
             stats["path"] = "resident"
-            det = ResidentCsDetector(res_seg, chunk=tuple(int(c) for c in cs), stencil=stencil_t)
+            det = ResidentCsDetector(res_seg, chunk=tuple(int(c) for c in cs), stencil=stencil_t,
+                                     kernel=kernel)
 
             def _finish(handle):
-                cix = handle[0]
-                packed, ovf = _timed(det.fetch, handle)
-                if ovf:
-                    stats["host_chunks"] += 1
-                    packed = _timed(_detect_host, _load(cix))
-                post_futs.append(poster.submit(_post_cached, cix, packed))
+                packed, _ = _timed(det.fetch, handle)
+                post_futs.append(poster.submit(_post_cached, handle[0], packed))
 
             for cix in chunk_ixs:
                 inflight.append(_timed(det.dispatch, cix))
@@ -355,6 +353,8 @@ def extract_contact_site_tables(
             while inflight:
                 _finish(inflight.popleft())
             results += [f.result() for f in post_futs]
+            stats["columns"] = det.n_columns
+            stats["overflow_columns"] = det.n_overflow
         elif kernel == "host":
             stats["path"] = "host"
             stats["host_chunks"] = len(chunk_ixs)

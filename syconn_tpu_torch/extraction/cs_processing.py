@@ -13,7 +13,8 @@ random forest at ``mpath_syn_rfc`` where one exists, else the JAX package's
 heuristic), ``combine_and_split_cs`` builds ``cs_ssv`` from the 'cs'
 fragments. ``collect_properties_from_ssv_partners`` and ``export_matrix``
 write the per-partner cell type, axoness and spiness and the CSV/NPZ matrix.
-Training the forest (``create_syn_rfc``) comes with ROADMAP Queue 1 item 10.
+Training the forest (``create_syn_rfc``) needs scikit-learn, which the card
+machine lacks: ROADMAP Queue 3 item 6.
 """
 
 from __future__ import annotations
@@ -476,8 +477,8 @@ def synssv_o_features(sd_syn: SegmentationDataset) -> np.ndarray:
 def create_syn_rfc(features: np.ndarray, labels: np.ndarray, save_path: Optional[str] = None):
     """Training the synapse random forest is not ported."""
     raise NotImplementedError(
-        "create_syn_rfc trains the synapse random forest (scikit-learn): training is not "
-        "ported yet, ROADMAP Queue 1, item 10 (training)")
+        "create_syn_rfc trains the synapse random forest with scikit-learn, which the port "
+        "does not depend on: ROADMAP Queue 3, item 6")
 
 
 def classify_synssv_objects(n_workers: Optional[int] = None) -> None:

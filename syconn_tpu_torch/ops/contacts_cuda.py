@@ -7,10 +7,11 @@ extent. Each column gets a table of at most ``K`` candidate labels, ascending
 and padded with ``INT_MAX``. The kernel (``csrc/contacts.cu``, replacing
 ``_detect_cs_pallas``) votes at every voxel of every column: the candidate
 most frequent in the stencil window wins, the voxel's own label, 0 and
-``INT_MAX`` never count, ties go to the candidate visited first. The host
-then reassembles the columns, crops the z halo, keeps boundary voxels only
-and recomputes the columns whose label diversity overflowed ``K`` with the
-exact host kernel.
+``INT_MAX`` never count, ties go to the candidate visited first.
+``contacts_torch.detect_cs_columns_device`` builds the tables and, after
+the vote, reassembles the columns, crops the z halo and keeps boundary
+voxels only, on the tensor's device; the host then recomputes the columns
+whose label diversity overflowed ``K`` with the exact host kernel.
 
 :func:`detect_cs_columns` runs :func:`detect_cs_columns_ref` for CPU tensors
 and launches the kernel for CUDA tensors (raising on what the kernel does
@@ -173,80 +174,6 @@ def detect_cs_columns(seg_padded: torch.Tensor, offs: torch.Tensor, cands: torch
 
 
 # ----------------------------------------------------------------- host side
-def _column_candidates(seg_padded: np.ndarray, offs: np.ndarray, wx: int, wy: int, K: int):
-    """Per-column ascending unique nonzero labels, ``(cands (G, K) int32
-    padded with INT_MAX, overflow (G,) bool)``.
-
-    Fast path: when the whole chunk holds <= K labels every column shares
-    the chunk's list and the per-column scans are skipped."""
-    n = len(offs)
-    cands = np.full((n, K), _INT_MAX, np.int32)
-    overflow = np.zeros(n, bool)
-    gu = np.unique(seg_padded)
-    gu = gu[gu != 0]
-    if len(gu) <= K:
-        cands[:, :len(gu)] = gu[None, :]
-        return cands, overflow
-    for i, (ox, oy) in enumerate(offs):
-        u = np.unique(seg_padded[ox:ox + wx, oy:oy + wy, :])
-        u = u[u != 0]
-        if len(u) > K:
-            overflow[i] = True
-            u = u[:K]
-        cands[i, :len(u)] = u
-    return cands, overflow
-
-
-def _columns_prep(seg: np.ndarray, stencil, tile_xy, K: int):
-    """Host prep: pad the core to a tile multiple, column origins, candidate
-    tables. Returns ``(seg_p, offs, cands, overflow, out_shape)``."""
-    seg = np.ascontiguousarray(seg)
-    if seg.max(initial=0) >= 2**31:
-        raise ValueError("the column kernel takes labels < 2**31; use ops.contacts.detect_cs")
-    tx, ty = (int(t) for t in tile_xy)
-    h = np.array([s // 2 for s in stencil])
-    out_shape = np.array(seg.shape) - 2 * h
-    gx = int(-(-out_shape[0] // tx))
-    gy = int(-(-out_shape[1] // ty))
-    pad = [(0, gx * tx - int(out_shape[0])), (0, gy * ty - int(out_shape[1])), (0, 0)]
-    seg_p = np.pad(seg.astype(np.int32), pad)
-    offs = np.array([(i * tx, j * ty) for i in range(gx) for j in range(gy)], np.int32)
-    cands, overflow = _column_candidates(seg_p, offs, tx + 2 * int(h[0]), ty + 2 * int(h[1]), K)
-    return seg_p, offs, cands, overflow, out_shape
-
-
-def _columns_finish(seg, lo_t, hi_t, overflow, offs, stencil, tile_xy, out_shape):
-    """Host finish: reassemble the columns, crop the z halo, apply the
-    boundary gate, recompute overflow columns with the host kernel."""
-    from .contacts import detect_cs, detect_seg_boundaries
-
-    tx, ty = (int(t) for t in tile_xy)
-    h = np.array([s // 2 for s in stencil])
-    gx = int(-(-out_shape[0] // tx))
-    gy = int(-(-out_shape[1] // ty))
-    ox, oy, oz = (int(s) for s in out_shape)
-
-    def assemble(t):
-        full = t.reshape(gx, gy, tx, ty, t.shape[-1]).transpose(0, 2, 1, 3, 4)
-        return full.reshape(gx * tx, gy * ty, -1)[:ox, :oy, h[2]:h[2] + oz].astype(np.uint64)
-
-    packed = (assemble(lo_t) << np.uint64(32)) | assemble(hi_t)
-    # the kernel votes everywhere; contacts live on boundary voxels only
-    seg32 = seg.astype(np.uint32)
-    bdry = detect_seg_boundaries(seg32)
-    packed[~bdry[h[0]:h[0] + ox, h[1]:h[1] + oy, h[2]:h[2] + oz]] = 0
-    for idx in np.flatnonzero(overflow):
-        x0, y0 = int(offs[idx][0]), int(offs[idx][1])
-        x1, y1 = min(x0 + tx, ox), min(y0 + ty, oy)
-        if x0 >= ox or y0 >= oy:
-            continue
-        # output voxel (x, y, z) reads input window [x, x + stencil): the
-        # column's crop plus full z
-        crop = seg32[x0:x1 + 2 * int(h[0]), y0:y1 + 2 * int(h[1]), :]
-        packed[x0:x1, y0:y1, :] = detect_cs(crop, stencil=stencil)
-    return packed
-
-
 def detect_cs_cuda(seg: np.ndarray, stencil=(13, 13, 7), tile_xy=(32, 32), K: int = 16,
                    device=None) -> np.ndarray:
     """Packed contact segmentation through the column kernel; same contract
@@ -255,13 +182,11 @@ def detect_cs_cuda(seg: np.ndarray, stencil=(13, 13, 7), tile_xy=(32, 32), K: in
 
     ``device=None`` means the CUDA card (required); ``"cpu"`` runs the plain
     version."""
+    from .contacts_torch import _check_labels, _pack, _patch_overflow, detect_cs_columns_device
+
     device = default_device(device)
-    stencil = tuple(int(s) for s in stencil)
-    tile_xy = tuple(int(t) for t in tile_xy)
-    seg = np.ascontiguousarray(seg)
-    seg_p, offs, cands, overflow, out_shape = _columns_prep(seg, stencil, tile_xy, K)
-    lo, hi = detect_cs_columns(
-        torch.from_numpy(seg_p).to(device), torch.from_numpy(offs).to(device),
-        torch.from_numpy(cands).to(device), stencil, tile_xy)
-    return _columns_finish(seg, lo.cpu().numpy(), hi.cpu().numpy(), overflow, offs, stencil,
-                           tile_xy, out_shape)
+    seg = _check_labels(seg)
+    partners, overflow = detect_cs_columns_device(
+        torch.from_numpy(seg.astype(np.int32)).to(device), stencil, tile_xy, K)
+    return _patch_overflow(_pack(partners.cpu().numpy()), overflow.cpu().numpy(), seg, stencil,
+                           tile_xy)

@@ -14,10 +14,12 @@ voxel the most frequent foreign label inside the stencil window wins (ties
 * the column formulation of :mod:`.contacts_cuda`, whose vote is the
   hand-written CUDA kernel.
 
-Tiles (or columns) with more than K labels are recomputed by the host
-kernel. :class:`CsDispatcher` takes chunks from the host and picks the
-formulation; :class:`ResidentCsDetector` slices chunks from a volume that
-already lives in device memory and reads contact voxels back sparsely.
+Both build their candidate tables on the device (:func:`column_tables`
+for the columns). Tiles (or columns) with more than K labels are
+recomputed by the host kernel. :class:`CsDispatcher` takes chunks from the
+host and picks the formulation; :class:`ResidentCsDetector` slices chunks
+from a volume that already lives in device memory, runs either formulation
+there and reads contact voxels back sparsely.
 """
 
 from __future__ import annotations
@@ -33,25 +35,26 @@ from ..io.resident import fetch
 from ..utils.device import default_device
 from .contacts_cuda import box_sum
 
-__all__ = ["detect_cs_device", "detect_cs_torch", "CsDispatcher", "ResidentCsDetector"]
+__all__ = ["detect_cs_device", "column_tables", "detect_cs_columns_device", "detect_cs_torch",
+           "CsDispatcher", "ResidentCsDetector"]
 
 _INT_MAX = int(np.iinfo(np.int32).max)
 _TILE_BATCH = 16
 
 
-def _tile_candidates(flat: torch.Tensor, K: int):
-    """flat (B, n) int32 tile windows -> (cands (B, K) ascending unique
-    nonzero labels padded with INT_MAX, overflow (B,) bool)."""
+def _candidate_tables(flat: torch.Tensor, K: int):
+    """flat (B, n) int32 label windows -> (cands (B, K) ascending unique
+    nonzero labels padded with INT_MAX, overflow (B,) bool). No host sync:
+    the labels past the K-th land in a discarded slot."""
     s, _ = torch.sort(flat, dim=1)
     firsts = torch.ones_like(s, dtype=torch.bool)
     firsts[:, 1:] = s[:, 1:] != s[:, :-1]
     firsts &= s != 0
-    slot = torch.cumsum(firsts, dim=1) - 1
-    overflow = firsts.sum(dim=1) > K
-    cands = torch.full((flat.shape[0], K), _INT_MAX, dtype=torch.int32, device=flat.device)
-    b, p = torch.nonzero(firsts & (slot < K), as_tuple=True)
-    cands[b, slot[b, p]] = s[b, p]
-    return cands, overflow
+    slot = torch.cumsum(firsts, dim=1, dtype=torch.int32) - 1
+    overflow = slot[:, -1] >= K
+    cands = torch.full((flat.shape[0], K + 1), _INT_MAX, dtype=torch.int32, device=flat.device)
+    cands.scatter_(1, torch.where(firsts & (slot < K), slot, K).long(), s)
+    return cands[:, :K].contiguous(), overflow
 
 
 def _tile_kernel(win: torch.Tensor, bdry: torch.Tensor, stencil, K: int):
@@ -60,7 +63,7 @@ def _tile_kernel(win: torch.Tensor, bdry: torch.Tensor, stencil, K: int):
     overflow (B,) bool)."""
     hx, hy, hz = stencil[0] // 2, stencil[1] // 2, stencil[2] // 2
     B = win.shape[0]
-    cands, overflow = _tile_candidates(win.reshape(B, -1), K)
+    cands, overflow = _candidate_tables(win.reshape(B, -1), K)
     cv = cands[:, None, None, None, :]
     counts = box_sum((win[..., None] == cv).to(torch.int32), stencil, (1, 2, 3))
     center = win[:, hx:win.shape[1] - hx, hy:win.shape[2] - hy, hz:win.shape[3] - hz]
@@ -129,23 +132,79 @@ def detect_cs_device(seg: torch.Tensor, stencil: Tuple[int, int, int] = (13, 13,
             torch.cat(overflow).reshape(grid))
 
 
+def column_tables(seg: torch.Tensor, stencil: Tuple[int, int, int] = (13, 13, 7),
+                  tile_xy: Tuple[int, int] = (32, 32), K: int = 32):
+    """The column kernel's inputs for an int32 label chunk (stencil halo
+    included), on the tensor's device: ``(seg_p, offs, cands, overflow)``,
+    the chunk zero-padded to a tile multiple in x and y, the (G, 2) column
+    origins, the (G, K) candidate tables (each column window's ascending
+    labels, the first K where more) and the (G,) overflow flags."""
+    tx, ty = (int(t) for t in tile_xy)
+    h = tuple(int(s) // 2 for s in stencil)
+    ox, oy = seg.shape[0] - 2 * h[0], seg.shape[1] - 2 * h[1]
+    gx, gy = -(-ox // tx), -(-oy // ty)
+    seg_p = F.pad(seg.to(torch.int32), (0, 0, 0, gy * ty - oy, 0, gx * tx - ox)).contiguous()
+    ox_g, oy_g = torch.meshgrid(torch.arange(gx, device=seg.device) * tx,
+                                torch.arange(gy, device=seg.device) * ty, indexing="ij")
+    offs = torch.stack([ox_g.reshape(-1), oy_g.reshape(-1)], dim=1).to(torch.int32)
+    # the column windows (gx, gy, Z, wx, wy), in the order of ``offs``
+    wins = seg_p.unfold(0, tx + 2 * h[0], tx).unfold(1, ty + 2 * h[1], ty)
+    cands, overflow = _candidate_tables(wins.reshape(gx * gy, -1), K)
+    return seg_p, offs, cands, overflow
+
+
+@torch.no_grad()
+def detect_cs_columns_device(seg: torch.Tensor, stencil: Tuple[int, int, int] = (13, 13, 7),
+                             tile_xy: Tuple[int, int] = (32, 32), K: int = 32):
+    """:func:`detect_cs_device`'s contract through the column formulation,
+    on the tensor's device: :func:`column_tables`, the hand-written kernel
+    on a CUDA tensor (its plain version on the CPU), then the columns
+    reassembled, the z halo cropped and the boundary gate applied. Returns
+    (partners (valid-convolution shape, 2) int32, overflow (gx, gy) bool
+    per column)."""
+    from .contacts_cuda import detect_cs_columns
+
+    stencil = tuple(int(s) for s in stencil)
+    tx, ty = (int(t) for t in tile_xy)
+    h = tuple(s // 2 for s in stencil)
+    ox, oy, oz = (seg.shape[i] - 2 * h[i] for i in range(3))
+    gx, gy = -(-ox // tx), -(-oy // ty)
+    seg_p, offs, cands, overflow = column_tables(seg, stencil, (tx, ty), K)
+    lo, hi = detect_cs_columns(seg_p, offs, cands, stencil, (tx, ty))
+
+    def assemble(t):
+        t = t.reshape(gx, gy, tx, ty, -1).permute(0, 2, 1, 3, 4).reshape(gx * tx, gy * ty, -1)
+        return t[:ox, :oy, h[2]:h[2] + oz]
+
+    # the kernel votes everywhere; contacts live on boundary voxels only
+    bdry = _boundaries(seg)[h[0]:h[0] + ox, h[1]:h[1] + oy, h[2]:h[2] + oz]
+    partners = torch.stack([assemble(lo), assemble(hi)], dim=-1)
+    return torch.where(bdry[..., None], partners, 0), overflow.reshape(gx, gy)
+
+
 def _pack(partners: np.ndarray) -> np.ndarray:
     """(…, 2) int32 (lo, hi) -> packed uint64, on the host: torch has no
     uint64 arithmetic to rely on."""
     return (partners[..., 0].astype(np.uint64) << np.uint64(32)) | partners[..., 1].astype(np.uint64)
 
 
-def _patch_overflow_tiles(packed, overflow, seg, stencil, tile):
-    """Recompute the overflowing tiles with the exact host kernel."""
+def _patch_overflow(packed, overflow, seg, stencil, tile):
+    """Recompute the overflowing tiles (a 3D ``overflow`` grid) or columns
+    (a 2D grid, full z) of ``packed`` with the exact host kernel, each from
+    its own crop of ``seg`` (stencil halo included)."""
     if not overflow.any():
         return packed
     from .contacts import detect_cs
 
-    full = detect_cs(seg.astype(np.uint32), stencil=stencil)
+    h = [int(s) // 2 for s in stencil]
     for gix in np.argwhere(overflow):
-        sl = tuple(slice(g * t, min((g + 1) * t, packed.shape[d]))
-                   for d, (g, t) in enumerate(zip(gix, tile)))
-        packed[sl] = full[sl]
+        lo = [int(g) * int(t) for g, t in zip(gix, tile)] + [0] * (3 - len(gix))
+        hi = [min(lo[d] + int(tile[d]), packed.shape[d]) if d < len(gix) else packed.shape[d]
+              for d in range(3)]
+        # output voxel v reads the input window [v, v + stencil)
+        crop = seg[lo[0]:hi[0] + 2 * h[0], lo[1]:hi[1] + 2 * h[1], lo[2]:hi[2] + 2 * h[2]]
+        packed[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] = detect_cs(crop.astype(np.uint32),
+                                                                 stencil=stencil)
     return packed
 
 
@@ -161,11 +220,11 @@ class _Pending:
     """A dispatched chunk: device work enqueued on the dispatcher's stream,
     results landing in pinned host memory; ``event`` fires when they have."""
 
-    __slots__ = ("host", "event", "seg", "extra", "keep")
+    __slots__ = ("host", "event", "seg", "keep")
 
-    def __init__(self, host, event, seg, extra, keep=None):
+    def __init__(self, host, event, seg, keep=None):
         self.host, self.event = host, event
-        self.seg, self.extra, self.keep = seg, extra, keep
+        self.seg, self.keep = seg, keep
 
     def arrays(self):
         if self.event is not None:
@@ -223,41 +282,24 @@ class CsDispatcher:
             event.record(self._stream)
         return host, event, (pinned, dev, outs)
 
+    def _detect(self, seg: torch.Tensor):
+        if self.kernel == "cuda":
+            return detect_cs_columns_device(seg, self.stencil, self.tile[:2], self.K)
+        return detect_cs_device(seg, self.stencil, self.tile, self.K)
+
     def dispatch(self, seg: np.ndarray) -> _Pending:
         t0 = time.perf_counter()
         seg = _check_labels(seg)
-        if self.kernel == "cuda":
-            from .contacts_cuda import _columns_prep, detect_cs_columns
-
-            tile_xy = self.tile[:2]
-            seg_p, offs, cands, overflow, out_shape = _columns_prep(
-                seg, self.stencil, tile_xy, self.K)
-            self.prep_seconds += time.perf_counter() - t0
-            host, event, keep = self._run(
-                [torch.from_numpy(a) for a in (seg_p, offs, cands)],
-                lambda s, o, c: detect_cs_columns(s, o, c, self.stencil, tile_xy))
-            return _Pending(host, event, seg, (overflow, offs, out_shape), keep)
+        seg32 = torch.from_numpy(seg.astype(np.int32))
         self.prep_seconds += time.perf_counter() - t0
-        host, event, keep = self._run(
-            [torch.from_numpy(seg.astype(np.int32))],
-            lambda s: detect_cs_device(s, self.stencil, self.tile, self.K))
-        return _Pending(host, event, seg, None, keep)
+        host, event, keep = self._run([seg32], self._detect)
+        return _Pending(host, event, seg, keep)
 
     def fetch(self, handle: _Pending) -> np.ndarray:
         """Blocking: the chunk's packed uint64 contact segmentation."""
-        if self.kernel == "cuda":
-            from .contacts_cuda import _columns_finish
-
-            overflow, offs, out_shape = handle.extra
-            lo_t, hi_t = handle.arrays()
-            t0 = time.perf_counter()
-            packed = _columns_finish(handle.seg, lo_t, hi_t, overflow, offs, self.stencil,
-                                     self.tile[:2], out_shape)
-        else:
-            partners, overflow = handle.arrays()
-            t0 = time.perf_counter()
-            packed = _patch_overflow_tiles(_pack(partners), overflow, handle.seg, self.stencil,
-                                           self.tile)
+        partners, overflow = handle.arrays()
+        t0 = time.perf_counter()
+        packed = _patch_overflow(_pack(partners), overflow, handle.seg, self.stencil, self.tile)
         self.finish_seconds += time.perf_counter() - t0
         self.n_columns += overflow.size
         self.n_overflow += int(overflow.sum())
@@ -273,12 +315,22 @@ class ResidentCsDetector:
     ``seg_dev``: int32 (X, Y, Z) tensor (labels < 2**31) on its device. The
     volume is padded once to a chunk multiple plus the stencil halo. A chunk
     with more than ``cap = max(1024, prod(chunk) // cap_divisor)`` contact
-    voxels is fetched densely.
+    voxels is fetched densely. ``n_columns``/``n_overflow`` count the
+    columns (or tiles) seen and those the host kernel recomputed.
+    ``kernel``: as for :class:`CsDispatcher`
+    (``"auto"``: the column formulation on the hand-written kernel for a
+    CUDA tensor, the per-tile formulation on the CPU, as the JAX package's
+    resident detector runs it).
     """
 
     def __init__(self, seg_dev: torch.Tensor, chunk: Sequence[int],
                  stencil: Sequence[int] = (13, 13, 7), tile: Sequence[int] = (32, 32, 16),
-                 K: int = 32, cap_divisor: int = 8):
+                 K: int = 32, cap_divisor: int = 8, kernel: str = "auto"):
+        if kernel == "auto":
+            kernel = "cuda" if seg_dev.device.type == "cuda" else "torch"
+        if kernel not in ("cuda", "torch"):
+            raise ValueError(f"unknown cs kernel: {kernel!r}")
+        self.kernel = kernel
         self.stencil = tuple(int(s) for s in stencil)
         self.tile = tuple(int(t) for t in tile)
         self.K = int(K)
@@ -291,18 +343,29 @@ class ResidentCsDetector:
             fpad += [h[i], grid[i] * self.chunk[i] - self.sh[i] + h[i]]
         self._padded = F.pad(seg_dev.to(torch.int32), fpad)
         self.cap = max(1024, int(np.prod(self.chunk)) // int(cap_divisor))
+        self.n_columns = 0
+        self.n_overflow = 0
         dev = self._padded.device
         self._stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
         if self._stream is not None:  # the pad above ran on the current stream
             self._stream.wait_stream(torch.cuda.current_stream(dev))
 
-    def _detect(self, cix):
+    def window(self, cix) -> torch.Tensor:
+        """Chunk (cx, cy, cz)'s input: the chunk plus the stencil halo, zeros
+        beyond the volume (a view of the padded volume on its device)."""
         off = [int(cix[i]) * self.chunk[i] for i in range(3)]
         w = [self.chunk[i] + 2 * self._h[i] for i in range(3)]
-        win = self._padded[off[0]:off[0] + w[0], off[1]:off[1] + w[1], off[2]:off[2] + w[2]]
-        partners, overflow = detect_cs_device(win, self.stencil, self.tile, self.K)
+        return self._padded[off[0]:off[0] + w[0], off[1]:off[1] + w[1], off[2]:off[2] + w[2]]
+
+    def _detect(self, cix):
+        win = self.window(cix)
+        if self.kernel == "cuda":
+            partners, overflow = detect_cs_columns_device(win, self.stencil, self.tile[:2],
+                                                          self.K)
+        else:
+            partners, overflow = detect_cs_device(win, self.stencil, self.tile, self.K)
         nz = partners[..., 0].reshape(-1) != 0
-        return partners, overflow.any(), nz, nz.sum()
+        return partners, overflow, nz, nz.sum()
 
     def dispatch(self, cix):
         """Launch chunk (cx, cy, cz); returns a handle for :meth:`fetch`."""
@@ -315,14 +378,15 @@ class ResidentCsDetector:
         return (cix, res, event)
 
     def fetch(self, handle):
-        """Blocking. Returns ``(packed, overflow)``: the chunk-core packed
-        uint64 contact segmentation (cropped to the volume boundary) and a
-        flag — True when a tile's candidate set overflowed K and the caller
-        must recompute this chunk with the host kernel."""
+        """Blocking. Returns ``(packed, n_overflow)``: the chunk-core packed
+        uint64 contact segmentation (cropped to the volume boundary), its
+        overflowing columns (or tiles) recomputed by the host kernel from
+        the chunk's window, and how many overflowed."""
         cix, (partners, overflow, nz, n), event = handle
         if event is not None:
             event.synchronize()
         n = int(n)
+        overflow = fetch(overflow)
         core = tuple(min(self.chunk[i], self.sh[i] - int(cix[i]) * self.chunk[i])
                      for i in range(3))
         if n > self.cap:
@@ -333,8 +397,13 @@ class ResidentCsDetector:
             if n > 0:
                 idx = torch.nonzero(nz)[:, 0]
                 out[fetch(idx)] = _pack(fetch(partners.reshape(-1, 2)[idx]))
-        out = out.reshape(self.chunk)[:core[0], :core[1], :core[2]]
-        return out, bool(overflow)
+        out = out.reshape(self.chunk)
+        if overflow.any():
+            tile = self.tile[:2] if self.kernel == "cuda" else self.tile
+            out = _patch_overflow(out, overflow, fetch(self.window(cix)), self.stencil, tile)
+        self.n_columns += overflow.size
+        self.n_overflow += int(overflow.sum())
+        return out[:core[0], :core[1], :core[2]], int(overflow.sum())
 
 
 def detect_cs_torch(seg: np.ndarray, stencil=(13, 13, 7), tile=(32, 32, 16), K: int = 32,
@@ -350,5 +419,5 @@ def detect_cs_torch(seg: np.ndarray, stencil=(13, 13, 7), tile=(32, 32, 16), K: 
     tile = tuple(int(t) for t in tile)
     partners, overflow = detect_cs_device(
         torch.from_numpy(seg.astype(np.int32)).to(device), stencil, tile, K)
-    return _patch_overflow_tiles(_pack(partners.cpu().numpy()), overflow.cpu().numpy(), seg,
-                                 stencil, tile)
+    return _patch_overflow(_pack(partners.cpu().numpy()), overflow.cpu().numpy(), seg, stencil,
+                           tile)

@@ -14,8 +14,9 @@ them, and components as the Python sets its BFS builds. The class keeps
 networkx's dict-of-dicts layout, so every one of those orders is the same.
 
 The subgraph windows (``split_subcc``, ``split_subcc_join``,
-``chunkify_graph_bfs``) and ``bfs_smoothing`` come with the steps that use
-them.
+``chunkify_graph_bfs``) walk :class:`AdjacencyGraph` in the order of
+``networkx.bfs_tree``; nothing in either package calls them or
+``bfs_smoothing``.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ from scipy.sparse.csgraph import connected_components
 
 __all__ = ["AdjacencyGraph", "create_ccsize_dict", "graph_components", "induced_subgraph",
            "graph_nodes", "remove_glia_nodes", "split_glia_graph", "create_graph_from_coords",
-           "stitch_skel_nx"]
+           "stitch_skel_nx", "bfs_order", "split_subcc", "split_subcc_join", "bfs_smoothing",
+           "chunkify_graph_bfs"]
 
 
 class AdjacencyGraph:
@@ -265,3 +267,89 @@ def stitch_skel_nx(skel_nx: AdjacencyGraph) -> AdjacencyGraph:
         skel_nx.add_edge(best[1], best[2])
         comps = [list(c) for c in skel_nx.connected_components()]
     return skel_nx
+
+
+# ------------------------------------------------------------ subgraph windows
+def bfs_order(g: AdjacencyGraph, source) -> List:
+    """The nodes of ``networkx.bfs_tree(g, source)`` in its iteration order:
+    the source, then every node as the breadth-first search first reaches
+    it, level by level, each node's neighbours in adjacency order."""
+    order, seen, level = [source], {source}, [source]
+    while level:
+        nxt = []
+        for u in level:
+            for w in g._adj[u]:
+                if w not in seen:
+                    seen.add(w)
+                    nxt.append(w)
+        order.extend(nxt)
+        level = nxt
+    return order
+
+
+def split_subcc(g: AdjacencyGraph, max_nb: int, verbose: bool = False,
+                start_nodes=None) -> Dict:
+    """Partition a graph into BFS-grown subgraphs of <= ``max_nb`` nodes,
+    seeded in node order (or ``start_nodes``). Returns {seed node: [nodes]}."""
+    out = {}
+    visited = set()
+    nodes = start_nodes if start_nodes is not None else list(g.nodes)
+    for seed in nodes:
+        if seed in visited:
+            continue
+        members = []
+        for n in bfs_order(g, seed):
+            if n in visited:
+                continue
+            members.append(n)
+            visited.add(n)
+            if len(members) >= max_nb:
+                break
+        out[seed] = members
+    return out
+
+
+def split_subcc_join(g: AdjacencyGraph, subgraph_size: int, lo_first_n: int = 1) -> List[List]:
+    """Overlapping BFS windows over each connected component: windows of
+    ``subgraph_size`` nodes, each starting ``lo_first_n`` nodes after the one
+    before, from the component's first node in networkx's set order."""
+    out = []
+    for comp in g.connected_components():
+        order = bfs_order(g, next(iter(comp)))
+        i = 0
+        while i < len(order):
+            window = order[max(0, i): i + subgraph_size]
+            if not window:
+                break
+            out.append(list(window))
+            if i + subgraph_size >= len(order):
+                break
+            i += max(1, lo_first_n)
+    return out
+
+
+def bfs_smoothing(vertices: np.ndarray, vertex_labels: np.ndarray, n_voting: int = 40,
+                  max_edge_length: float = 250) -> np.ndarray:
+    """Majority-smooth vertex labels over each vertex's ``n_voting`` nearest
+    neighbours within ``max_edge_length`` (ties to the smaller label)."""
+    tree = spatial.cKDTree(vertices)
+    _, ixs = tree.query(vertices, k=min(n_voting, len(vertices)),
+                        distance_upper_bound=max_edge_length)
+    labels = np.asarray(vertex_labels)
+    out = labels.copy()
+    valid_max = len(vertices)
+    for i in range(len(vertices)):
+        neigh = ixs[i]
+        neigh = neigh[neigh < valid_max]
+        out[i] = np.bincount(labels[neigh].astype(np.int64)).argmax()
+    return out
+
+
+def chunkify_graph_bfs(g: AdjacencyGraph, n_chunks: int) -> List[List]:
+    """The nodes in BFS order per connected component, cut into lists of
+    ``len(nodes) // n_chunks`` (at least 1)."""
+    nodes = []
+    for comp in g.connected_components():
+        nodes.extend(bfs_order(g, next(iter(comp))))
+    size = max(1, len(nodes) // max(n_chunks, 1))
+    return [nodes[i: i + size] for i in range(0, len(nodes), size)]

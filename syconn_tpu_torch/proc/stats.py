@@ -118,13 +118,20 @@ def _scores(tp, n_pred, n_true):
 def classification_report(labels: np.ndarray, preds: np.ndarray, digits: int = 2) -> str:
     """``sklearn.metrics.classification_report(labels, preds,
     zero_division=0)`` for integer class labels: per class precision,
-    recall, F1 and support, then accuracy, macro and weighted averages."""
+    recall, F1 and support, then accuracy, macro and weighted averages.
+
+    Where no prediction is right, scikit-learn's ``multilabel_confusion_matrix``
+    starts its true-positive counts as float zeros (its "pathological case"),
+    the supports it derives from them are floats, and every support of the
+    report prints as ``2.0``; so do they here."""
     labels = np.asarray(labels).ravel()
     preds = np.asarray(preds).ravel()
     classes = np.unique(np.concatenate([labels, preds]))
     tp = np.array([np.sum((preds == c) & (labels == c)) for c in classes], np.float64)
     n_pred = np.array([np.sum(preds == c) for c in classes], np.float64)
     support = np.array([np.sum(labels == c) for c in classes], np.int64)
+    if tp.sum() == 0:
+        support = support.astype(np.float64)
     p, r, f1 = _scores(tp, n_pred, support.astype(np.float64))
     names = ["%s" % c for c in classes]
     width = max(max(len(n) for n in names), len("weighted avg"), digits)
@@ -135,7 +142,7 @@ def classification_report(labels: np.ndarray, preds: np.ndarray, digits: int = 2
     for row in zip(names, p, r, f1, support):
         report += row_fmt.format(*row, width=width, digits=digits)
     report += "\n"
-    total = int(support.sum())
+    total = support.sum()
     _, _, acc = _scores(tp.sum(), n_pred.sum(), float(total))
     report += ("{:>{width}s} " + " {:>9.{digits}}" * 2 + " {:>9.{digits}f}" + " {:>9}\n").format(
         "accuracy", "", "", float(acc), total, width=width, digits=digits)

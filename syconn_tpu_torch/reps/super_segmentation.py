@@ -41,7 +41,8 @@ from .segmentation import SegmentationDataset, SegmentationObject
 
 __all__ = ["SuperSegmentationObject", "SuperSegmentationDataset", "save_dataset_deep"]
 
-_NO_KZIP = ("kzip export of cells is not ported yet: ROADMAP Queue 1, item 12 (tail)")
+_NO_KZIP = ("kzip export of cells is not ported yet: ROADMAP Queue 1, item 14 (cell editing "
+            "and kzip)")
 
 
 class SuperSegmentationObject(SegmentationBase):

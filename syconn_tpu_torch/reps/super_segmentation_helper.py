@@ -273,7 +273,10 @@ def extract_spinehead_volume(
     out: Dict[int, float] = {}
     for c, syn_id in zip(syn_coords, syn_ids):
         offset = np.maximum(c - ctx_vol, 0)
-        size = (2 * ctx_vol).astype(np.int64)
+        # the cube is cut one voxel beyond the dataset: the zeros further out
+        # change no distance, hole, maximum or label of the voxels inside, and
+        # near a border of a small dataset they are most of the cube
+        size = np.minimum(2 * ctx_vol, kd.boundary - offset + 1).astype(np.int64)
         seg = kd.load_seg(offset=offset, size=size, mag=1)
         if len(sv_ids) > 1:
             seg = relabel_vol_nonexist2zero(seg.astype(np.uint64), {int(k): 1 for k in sv_ids})

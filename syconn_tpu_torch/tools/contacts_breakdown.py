@@ -35,6 +35,7 @@ def main() -> int:
 
     from syconn_tpu_torch.ops import build
     from syconn_tpu_torch.ops import contacts_cuda as CC
+    from syconn_tpu_torch.ops.contacts_torch import column_tables
 
     build.NVCC_FLAGS.append("-DCONTACTS_TIMING")
     lib = build.library("contacts")
@@ -46,8 +47,9 @@ def main() -> int:
     buf = (ctypes.c_ulonglong * 16)()
     for label, shape, stencil, tile_xy, K, block, _ in smoke.CONTACT_SHAPES:
         seg = smoke.blocky_labels(shape, block, seed=11)
-        seg_p, offs, cands, _, _ = CC._columns_prep(seg, stencil, tile_xy, K)
-        a = [torch.from_numpy(t).to(dev) for t in (seg_p, offs, cands)]
+        seg_t = torch.from_numpy(seg.astype(np.int32)).to(dev)
+        a = column_tables(seg_t, stencil, tile_xy, K)[:3]
+        cands = a[2].cpu().numpy()
         CC.detect_cs_columns(*a, stencil, tile_xy)  # warm-up
         torch.cuda.synchronize()
         if lib.contacts_debug_reset() != 0:

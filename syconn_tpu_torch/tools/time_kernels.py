@@ -111,11 +111,13 @@ def main() -> int:
         print(json.dumps(dict(tag, per_syntype_tile_ms=per_tile)), flush=True)
     if args.only in (None, "contacts"):
         from syconn_tpu_torch.ops import contacts_cuda as CC
+        from syconn_tpu_torch.ops.contacts_torch import column_tables
 
         for label, shape, stencil, tile_xy, K, block, _ in smoke.CONTACT_SHAPES:
             seg = smoke.blocky_labels(shape, block, seed=11)
-            seg_p, offs, cands, _, _ = CC._columns_prep(seg, stencil, tile_xy, K)
-            a = [torch.from_numpy(t).to(dev) for t in (seg_p, offs, cands)]
+            seg_t = torch.from_numpy(seg.astype(np.int32)).to(dev)
+            a = column_tables(seg_t, stencil, tile_xy, K)[:3]
+            cands = a[2].cpu().numpy()
             ms = cuda_ms(lambda: CC.detect_cs_columns(*a, stencil, tile_xy))
             live = float((cands != np.iinfo(np.int32).max).sum(axis=1).mean())
             print(json.dumps(dict(tag, name="detect_cs_columns", shape=label, K=K,

@@ -7,10 +7,10 @@ interfaces with sym/asym type maps, a noisy raw-EM-like image, and the
 supervoxel adjacency graph; for one seed and shape byte-identical to the
 JAX package's host world.
 
-Left for later: the JAX package's device generator
-(``utils/testdata_device.py``, reached through its relay link probe) is
-ROADMAP Queue 1 item 12, and ``write_toy_world`` (HDF5 through
-``handler/compression.py``) is item 15 with the pipeline script.
+The dense fields of large worlds can come from the device generator
+(``utils/testdata_device.py``); the world is then statistically equivalent
+to the host world, not byte-identical. Left for later: ``write_toy_world``
+(HDF5 through ``handler/compression.py``), ROADMAP Queue 1 item 15.
 """
 
 from __future__ import annotations
@@ -19,11 +19,33 @@ import logging
 from typing import Dict, Sequence
 
 import numpy as np
+import torch
 from scipy import ndimage
+
+from .device import default_device
 
 log = logging.getLogger("syconn_tpu_torch.testdata")
 
-__all__ = ["generate_toy_world"]
+__all__ = ["auto_world_device", "generate_toy_world"]
+
+
+AUTO_DEVICE_MVX = 32.0
+
+
+def auto_world_device(shape, card):
+    """The ``"auto"`` rule: ``card`` (a CUDA device, or None without one)
+    for volumes of ``AUTO_DEVICE_MVX`` or more, else None (the host)."""
+    big = float(np.prod([int(s) for s in shape])) >= AUTO_DEVICE_MVX * 1e6
+    return torch.device(card) if big and card is not None else None
+
+
+def _generator_device(device, shape):
+    """The torch device of the dense fields, or None for the host path."""
+    if device is False:
+        return None
+    if device == "auto":
+        return auto_world_device(shape, "cuda" if torch.cuda.is_available() else None)
+    return default_device(None if device is True else device)
 
 
 def generate_toy_world(
@@ -40,16 +62,20 @@ def generate_toy_world(
     (uint8 probability maps), sym/asym (uint8 maps), er/golgi (uint8 maps),
     rag ((N, 2) uint64 edges), cells (uint64 cell labels), sv2cell (dict).
 
-    ``device``: ``"auto"`` and ``False`` run the host generator, which the
-    JAX package's ``"auto"`` also runs below 32 MVx or without a fast
-    accelerator link; ``True`` (the JAX package's analytic fields on the
-    accelerator, ``utils/testdata_device.py``) raises: ROADMAP Queue 1
-    item 12.
+    ``device``: ``False`` runs the host generator; ``True``, or a device
+    (``"cuda"``, ``"cpu"``), evaluates the dense fields (Voronoi cells,
+    supervoxels, organelle ellipsoids, synapse sprinkle, raw image) per voxel
+    with PyTorch ops (``utils/testdata_device.py``; ``True`` means the card);
+    ``"auto"`` takes the card for volumes of 32 MVx or more when one is
+    attached, else the host (the JAX package's rule, without its relay link
+    probe). The device world's labels equal the JAX package's device world;
+    its raw image is statistically equivalent, not byte-identical. On the
+    card, ``"_device"`` holds the seg, mi, vc and sj fields as they stay
+    there (int32 and 0/255 uint8 tensors) for ``io.resident``.
     """
-    if device is True:
-        raise NotImplementedError(
-            "the device world generator (syconn_tpu/utils/testdata_device.py) is ROADMAP "
-            "Queue 1 item 12 and is not ported yet; use device='auto' or False")
+    gen_device = _generator_device(device, shape)
+    if gen_device is not None:
+        return _generate_toy_world_device(shape, n_cells, svs_per_cell, seed, scale, gen_device)
     log.info("world generator: host path (%.0f MVx)", np.prod(shape) / 1e6)
     rng = np.random.default_rng(seed)
     shape = tuple(int(s) for s in shape)
@@ -228,6 +254,154 @@ def generate_toy_world(
 
     to_prob = lambda m: (m.astype(np.uint8) * 255)
     return {
+        "raw": raw,
+        "seg": seg,
+        "cells": cells,
+        "mi": to_prob(mi_mask),
+        "vc": to_prob(vc_mask),
+        "sj": to_prob(sj_mask),
+        "sym": to_prob(sym_mask),
+        "asym": to_prob(asym_mask),
+        "er": to_prob(er_mask),
+        "golgi": to_prob(golgi_mask),
+        "rag": rag,
+        "sv2cell": sv2cell,
+    }
+
+
+def _generate_toy_world_device(shape, n_cells, svs_per_cell, seed, scale, device):
+    """Device-path world: dense fields on ``device``, sparse pieces (ER
+    walks, golgi discs, sym/asym split, RAG) on the host."""
+    from .testdata_device import generate_dense_fields_device
+
+    rng = np.random.default_rng(seed)
+    shape = tuple(int(s) for s in shape)
+    scale = np.asarray(scale, np.float64)
+    aniso = scale / scale[0]
+
+    seeds = np.stack([rng.uniform(0.15 * s, 0.85 * s, n_cells) for s in shape], axis=1)
+
+    def cell_of(p):
+        d = np.sum(((p[None] - seeds) * aniso[None]) ** 2, axis=1)
+        return int(np.argmin(d)) + 1
+
+    # supervoxel centers: rejection-sampled points inside each cell
+    svc, svc_cell, sv2cell = [], [], {}
+    next_sv = 1
+    for c in range(1, n_cells + 1):
+        placed = 0
+        while placed < svs_per_cell:
+            p = np.array([rng.uniform(0, s) for s in shape])
+            if cell_of(p) != c:
+                continue
+            svc.append(p)
+            svc_cell.append(c)
+            sv2cell[next_sv] = c
+            next_sv += 1
+            placed += 1
+
+    def sample_blobs(n, r_vox):
+        out = []
+        attempts = 0
+        while len(out) < n and attempts < n * 20:
+            attempts += 1
+            p = np.array([rng.integers(r_vox, s - r_vox) for s in shape], np.float64)
+            c = cell_of(p)
+            zz = max(1, r_vox // 2)
+            out.append([p[0], p[1], p[2], float(r_vox), float(zz), float(c)])
+        return np.asarray(out, np.float32).reshape(-1, 6)
+
+    mi_blobs = sample_blobs(max(6, n_cells * 3), 7)
+    vc_blobs = sample_blobs(max(8, n_cells * 4), 5)
+
+    dense = generate_dense_fields_device(
+        shape, seeds, np.asarray(svc), np.asarray(svc_cell, np.int32),
+        mi_blobs, vc_blobs, scale, seed, device=device,
+    )
+    seg16 = dense["seg"]
+    lut = np.concatenate([np.zeros(1, np.uint64), np.asarray(svc_cell, np.uint64)])
+    cells = lut[seg16]
+    mi_mask, vc_mask, sj_mask = dense["mi"], dense["vc"], dense["sj"]
+    raw = dense["raw"].astype(np.int16)
+
+    # ------------------------------ sparse host pieces (O(objects) work)
+    er_seed = np.zeros(shape, bool)
+    n_steps = max(120, int(np.prod(shape) ** (1 / 3)) * 4)
+    sx, sy, sz = shape
+    for c in range(1, n_cells + 1):
+        p = seeds[c - 1].astype(np.int64)
+        px, py, pz = (int(np.clip(p[d], 1, shape[d] - 2)) for d in range(3))
+        steps = rng.integers(-1, 2, (n_steps, 3))
+        steps[rng.random(n_steps) >= 0.4, 2] = 0
+        for dx, dy, dz in steps.tolist():
+            qx = min(max(px + dx, 1), sx - 2)
+            qy = min(max(py + dy, 1), sy - 2)
+            qz = min(max(pz + dz, 1), sz - 2)
+            if cells[qx, qy, qz] == c:
+                px, py, pz = qx, qy, qz
+            er_seed[px, py, pz] = True
+    er_mask = ndimage.binary_dilation(er_seed, iterations=1) & (cells > 0)
+
+    golgi_mask = np.zeros(shape, bool)
+    xx, yy = np.meshgrid(np.arange(-6, 7), np.arange(-6, 7), indexing="ij")
+    disc = (xx / 6.0) ** 2 + (yy / 6.0) ** 2 <= 1.0
+    for _ in range(n_cells * 2):
+        p = np.array([rng.integers(8, s - 8) for s in shape])
+        cid = cells[tuple(p)]
+        if cid == 0:
+            continue
+        for dz in range(-3, 4, 2):
+            z = int(np.clip(p[2] + dz, 0, shape[2] - 1))
+            sl = (slice(p[0] - 6, p[0] + 7), slice(p[1] - 6, p[1] + 7), z)
+            golgi_mask[sl] |= disc & (cells[sl] == cid)
+
+    raw[er_mask] -= 20
+    raw[golgi_mask] -= 40
+    raw = np.clip(raw, 0, 255).astype(np.uint8)
+
+    sj_lab, _ = ndimage.label(sj_mask)
+    sym_mask = sj_mask & (sj_lab % 2 == 0)
+    asym_mask = sj_mask & (sj_lab % 2 == 1)
+
+    # RAG from the narrow (uint16) labels: 4x less memory traffic than
+    # scanning the uint64 volume
+    pair_sets = []
+    for a_sl, b_sl in (
+        ((slice(None, -1), slice(None), slice(None)), (slice(1, None), slice(None), slice(None))),
+        ((slice(None), slice(None, -1), slice(None)), (slice(None), slice(1, None), slice(None))),
+        ((slice(None), slice(None), slice(None, -1)), (slice(None), slice(None), slice(1, None))),
+    ):
+        a = seg16[a_sl].reshape(-1)
+        b = seg16[b_sl].reshape(-1)
+        sel = (a != 0) & (b != 0) & (a != b)
+        lo32 = np.minimum(a[sel], b[sel]).astype(np.uint32)
+        hi32 = np.maximum(a[sel], b[sel]).astype(np.uint32)
+        pair_sets.append(np.unique((lo32 << np.uint32(16)) | hi32))
+    packed = np.unique(np.concatenate(pair_sets)) if pair_sets else np.zeros(0, np.uint32)
+    lo = (packed >> np.uint32(16)).astype(np.uint64)
+    hi = (packed & np.uint32(0xFFFF)).astype(np.uint64)
+    seg = seg16.astype(np.uint64)
+    same_cell = (
+        np.array([sv2cell[int(x)] == sv2cell[int(y)] for x, y in zip(lo, hi)], bool)
+        if len(packed) else np.zeros(0, bool)
+    )
+    rag = np.stack([lo[same_cell], hi[same_cell]], axis=1).reshape(-1, 2)
+
+    dev = dense["_device"]
+    dev_out = {}
+    if dev:
+        # the generated fields are still on the card: hand them to the caller
+        # so that the resident store registers them without an upload. raw
+        # is left out (the host darkens it for er/golgi above); sym/asym come
+        # from the host labelling.
+        dev_out = {"seg": dev["seg"]}
+        for bit, co in ((1, "mi"), (2, "vc"), (4, "sj")):
+            dev_out[co] = ((dev["masks"] & bit) > 0).to(torch.uint8) * 255
+        del dev
+
+    to_prob = lambda m: (m.astype(np.uint8) * 255)
+    return {
+        "_device": dev_out,
         "raw": raw,
         "seg": seg,
         "cells": cells,

@@ -1,7 +1,7 @@
 """Neuron-morphology synthetic world: tubular cells with ground truth
 (the port's copy of ``syconn_tpu/utils/testdata_neuro.py``: numpy and
 scipy only, the same world for the same seed; ``write_neuron_world``, which
-writes HDF5, is ROADMAP Queue 1 item 15 with the pipeline script).
+writes HDF5, is ROADMAP Queue 1 item 15).
 
 The Voronoi toy world (`utils/testdata.py`) exercises the pipeline's
 plumbing but carries no morphological ground truth — its "cells" are

@@ -73,19 +73,24 @@ def _pickles(d):
     return out
 
 
-def compare_datasets(wj, wt, types):
+def compare_datasets(wj, wt, types, skip=()):
     """Numpy caches, per-shard attribute dicts, meshes and voxel stores of
     each dataset type (``<wd>/<type>s_0``): equal, but for the voxel stores'
     data path (each names its own working directory) and the compressed
-    bytes of the mesh payloads (compared decompressed)."""
+    bytes of the mesh payloads (compared decompressed). The attributes named
+    in ``skip`` (their numpy caches and their entries in the attribute
+    dicts) are left out."""
     from syconn_tpu_torch.backend import MeshStorage
 
+    skip = set(skip)
     for t in types:
         dj, dt = os.path.join(wj, f"{t}s_0"), os.path.join(wt, f"{t}s_0")
         npy = sorted(os.path.basename(p) for p in glob.glob(os.path.join(dj, "*.npy")))
         assert npy == sorted(os.path.basename(p) for p in glob.glob(os.path.join(dt, "*.npy")))
         assert "ids.npy" in npy
         for name in npy:
+            if name[:-5] in skip:
+                continue
             _same(np.load(os.path.join(dj, name), allow_pickle=True),
                   np.load(os.path.join(dt, name), allow_pickle=True), f"{t}/{name}")
         for p in sorted(glob.glob(os.path.join(dj, "**", "*.npz"), recursive=True)):
@@ -97,6 +102,10 @@ def compare_datasets(wj, wt, types):
         pj, pt = _pickles(dj), _pickles(dt)
         assert sorted(pj) == sorted(pt), t
         for rel in pj:
+            if skip and rel.endswith("attr_dict.pkl"):
+                for p in (pj, pt):
+                    p[rel] = {i: {k: v for k, v in d.items() if k not in skip}
+                              for i, d in p[rel].items()}
             if rel.endswith("voxel_dyn.pkl"):
                 for p, w in ((pj, wj), (pt, wt)):
                     meta = p[rel]["meta"]

@@ -40,12 +40,13 @@ def test_port_imports_without_jax_flax_msgpack_or_reference():
     import syconn_tpu_torch
 
     n = len(list(pkgutil.walk_packages(syconn_tpu_torch.__path__, "syconn_tpu_torch.")))
-    assert int(out.stdout.strip().splitlines()[-1]) == n >= 97
+    assert int(out.stdout.strip().splitlines()[-1]) == n >= 101
     names = {m.name for m in pkgutil.walk_packages(syconn_tpu_torch.__path__, "syconn_tpu_torch.")}
     assert {f"syconn_tpu_torch.{m}" for m in (
         "models.train", "models.traindata", "utils.testdata", "utils.testdata_neuro",
         "utils.quality_metrics", "proc.stats", "cnn.toy", "cnn.toy_points", "cnn.train_dense",
-        "cnn.train_points", "cnn.train_views", "cnn.calibrate", "cnn.train_pretrained")} <= names
+        "cnn.train_points", "cnn.train_views", "cnn.calibrate", "cnn.train_pretrained",
+        "examples", "examples.start", "cnn.eval_quality", "utils.testdata_device")} <= names
 
 
 def test_entry_points_without_device_raise(monkeypatch, tmp_path):
@@ -70,6 +71,39 @@ def test_entry_points_without_device_raise(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         predict_synapsetype(kd_path=kd, target_paths={"asym": str(tmp_path / "a"),
                                                    "sym": str(tmp_path / "s")})
+
+
+def test_driver_entry_points_without_device_raise(monkeypatch, tmp_path):
+    """The pipeline driver, the quality evaluation and the device world
+    generator: CUDA or ``device="cpu"``; the driver and the evaluation refuse
+    before they write anything."""
+    from syconn_tpu_torch.cnn import eval_quality
+    from syconn_tpu_torch.examples import start
+    from syconn_tpu_torch.utils.quality_metrics import run_quality_pipeline
+    from syconn_tpu_torch.utils.testdata import generate_toy_world
+    from syconn_tpu_torch.utils.testdata_device import generate_dense_fields_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    wd, keep = str(tmp_path / "wd"), str(tmp_path / "quality")
+    calls = [lambda **kw: start.main(["--working_dir", wd]
+                                     + (["--device", kw["device"]] if kw else [])),
+             lambda **kw: eval_quality.main(["--keep_wd", keep, "--seeds", "1"]
+                                            + (["--device", kw["device"]] if kw else [])),
+             lambda **kw: run_quality_pipeline(wd, 1, **kw),
+             lambda **kw: generate_toy_world((8, 8, 8), 1, **({"device": True} if not kw
+                                                               else kw)),
+             lambda **kw: generate_dense_fields_device(
+                 (8, 8, 8), np.full((1, 3), 4.0), np.full((1, 3), 4.0), [1], np.zeros((0, 6)),
+                 np.zeros((0, 6)), np.array([10, 10, 20]), 0, **kw)]
+    for call in calls:
+        for kw in ({}, {"device": "cuda"}):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                call(**kw)
+    assert not os.path.exists(wd) and not os.path.exists(keep)
+    fields = generate_dense_fields_device(
+        (8, 8, 8), np.full((1, 3), 4.0), np.full((1, 3), 4.0), [1], np.zeros((0, 6)),
+        np.zeros((0, 6)), np.array([10, 10, 20]), 0, device="cpu")
+    assert fields["seg"].shape == (8, 8, 8) and fields["_device"] == {}
 
 
 def test_contact_entry_points_without_device_raise(monkeypatch, tmp_path):

@@ -202,6 +202,7 @@ def test_contact_kernel_matches_plain_version(dev, case):
     CUDA tensors, and the whole column path == the exact host kernel."""
     from syconn_tpu_torch.ops import contacts_cuda as CC
     from syconn_tpu_torch.ops.contacts import detect_cs
+    from syconn_tpu_torch.ops.contacts_torch import column_tables
 
     seg, stencil, tile_xy, K = {
         "tile16": (_blocky(3, 5, (10, 10, 6), (6, 6, 6)), (13, 13, 7), (16, 16), 16),
@@ -210,11 +211,12 @@ def test_contact_kernel_matches_plain_version(dev, case):
         "overflow_k8": (_blocky(4, 24, (12, 12, 6), (4, 4, 6)), (13, 13, 7), (16, 16), 8),
         "dense_k32": (_dense_labels(), (13, 13, 7), (32, 32), 32),
     }[case]
-    seg_p, offs, cands, overflow, _ = CC._columns_prep(seg, stencil, tile_xy, K)
-    assert overflow.any() == (case == "overflow_k8") or case == "dense_k32"
+    seg_p, offs, cands, overflow = column_tables(torch.from_numpy(seg.astype(np.int32)).to(dev),
+                                                 stencil, tile_xy, K)
+    assert bool(overflow.any()) == (case == "overflow_k8") or case == "dense_k32"
     if case == "dense_k32":
-        assert 16 <= float((cands != 2**31 - 1).sum(axis=1).mean()) <= 28
-    args = [torch.from_numpy(a).to(dev) for a in (seg_p, offs, cands)]
+        assert 16 <= float((cands != 2**31 - 1).sum(dim=1).float().mean()) <= 28
+    args = [seg_p, offs, cands]
     C.reset_launch_counts()
     lo, hi = CC.detect_cs_columns(*args, stencil, tile_xy)
     torch.cuda.synchronize()
@@ -245,7 +247,8 @@ def test_contact_kernel_rejects_what_it_does_not_take(dev):
 
 
 def test_contact_extraction_card_matches_cpu(dev, tmp_path):
-    """Streaming (CUDA kernel) and resident runs on the card == the CPU run."""
+    """Streaming and resident runs on the card (both through the CUDA
+    kernel, once per chunk) == the CPU run."""
     from syconn_tpu_torch.exec.exec_syns import run_contact_extraction
     from syconn_tpu_torch.io import resident
     from syconn_tpu_torch.io.chunked import ChunkedVolume
@@ -267,7 +270,7 @@ def test_contact_extraction_card_matches_cpu(dev, tmp_path):
         finally:
             resident.clear()
         assert res["stats"]["path"] == ("resident" if tag == "resident" else "stream")
-        assert C.LAUNCHES["detect_cs_columns"] == (3 if tag == "stream" else 0)
+        assert C.LAUNCHES["detect_cs_columns"] == (0 if tag == "cpu" else 3)
         vols[tag] = ChunkedVolume.open(str(tmp_path / tag / "cs_seg")).load_seg(size=sh)
     assert vols["cpu"].any()
     assert np.array_equal(vols["cpu"], vols["stream"])

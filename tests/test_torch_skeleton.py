@@ -7,7 +7,10 @@
   sliding-window majority vote on grid skeletons with exact distance ties,
   whose results depend on networkx's iteration order;
 * ``AdjacencyGraph`` iterating as ``networkx.Graph`` does (nodes, neighbours,
-  edges, components) under random edits.
+  edges, components) under random edits;
+* the BFS subgraph windows (``split_subcc``, ``split_subcc_join``,
+  ``chunkify_graph_bfs``) on seeded graphs of many equal-depth branches, and
+  ``bfs_smoothing`` on grid vertices with tied distances and tied votes.
 """
 
 import random
@@ -156,3 +159,51 @@ def test_adjacency_graph_iterates_as_networkx(seed):
     g.remove_nodes_from(drop)
     a.remove_nodes_from(drop)
     assert list(g.edges()) == a.edges() and a.number_of_nodes() == g.number_of_nodes()
+
+
+def _twin_graphs(seed, n=120, n_edges=220):
+    """The same seeded graph as ``networkx.Graph`` and ``AdjacencyGraph``,
+    nodes and edges inserted in one shuffled order: several components,
+    cycles, and many nodes at equal BFS depth."""
+    from syconn_tpu_torch.proc.graphs import AdjacencyGraph
+
+    r = random.Random(seed)
+    g, a = nx.Graph(), AdjacencyGraph()
+    for i in r.sample(range(n), n):
+        g.add_node(i)
+        a.add_node(i)
+    for _ in range(n_edges):
+        u, v = r.randrange(n), r.randrange(n // 2) * 2
+        if u != v:
+            g.add_edge(u, v)
+            a.add_edge(u, v)
+    return g, a, r
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_graph_windows_equal_jax(seed):
+    from syconn_tpu.proc import graphs as J
+    from syconn_tpu_torch.proc import graphs as T
+
+    g, a, r = _twin_graphs(seed)
+    for source in r.sample(list(g.nodes()), 5):
+        assert list(nx.bfs_tree(g, source)) == T.bfs_order(a, source)
+    starts = r.sample(list(g.nodes()), 30)
+    for max_nb in (1, 4, 17, 500):
+        assert T.split_subcc(a, max_nb) == J.split_subcc(g, max_nb)
+        assert T.split_subcc(a, max_nb, start_nodes=starts) == \
+            J.split_subcc(g, max_nb, start_nodes=starts)
+    for size, lo in ((1, 1), (5, 1), (8, 3), (40, 0), (500, 2)):
+        assert T.split_subcc_join(a, size, lo) == J.split_subcc_join(g, size, lo)
+    for n_chunks in (0, 1, 7, 500):
+        assert T.chunkify_graph_bfs(a, n_chunks) == J.chunkify_graph_bfs(g, n_chunks)
+
+    # grid vertices: many neighbours at equal distances, labels with tied votes
+    rng = np.random.default_rng(seed)
+    verts = np.stack(np.meshgrid(*[np.arange(6) * 100.0] * 3, indexing="ij"), -1).reshape(-1, 3)
+    verts = verts[rng.permutation(len(verts))]
+    labels = rng.integers(0, 4, len(verts))
+    for n_voting, max_len in ((1, 250), (7, 150), (7, 100.0), (40, 250), (300, 1e9)):
+        got = T.bfs_smoothing(verts, labels, n_voting, max_len)
+        ref = J.bfs_smoothing(verts, labels, n_voting, max_len)
+        assert got.dtype == ref.dtype and np.array_equal(got, ref), (n_voting, max_len)

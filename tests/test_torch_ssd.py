@@ -124,7 +124,7 @@ def test_sso_sv_graph_file_and_later_methods(tmp_path, monkeypatch):
     assert again.sv_ids.tolist() == [3, 7, 9]
     ssd.build_sv2ssv_index()
     assert ssd.sv2ssv_ids(np.array([9, 3], np.uint64)).tolist() == [3, 3]
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 14"):
         sso.export2kzip()
     # steps 7-9 and the views are ported: the cell type runs the celltype
     # net and the views the renderer (here the card is hidden, so both ask

@@ -13,11 +13,14 @@ construction ground truth saved as ``neuron_gt.npz`` as
 * ``eval_toy_point_models`` with the packaged point nets copied into both
   directories (the JAX side under ``jax.disable_jit()``, eager as the port):
   the accuracies within 0.02 (a bf16 flip can move a point's label);
-* ``run_quality_pipeline`` raises: the port has no pipeline script yet;
+* ``quality_pipeline_argv`` equals the JAX package's driver arguments, and
+  ``run_quality_pipeline`` without a card raises before starting anything;
 * the CLIs ``train_points``, ``train_views`` (on a copy of the port's
   directory as a ``seed<N>`` pipeline world), ``train_dense`` and
-  ``train_pretrained`` at toy sizes on the CPU: each writes its models into
-  its working directory and nothing into the packaged weights;
+  ``train_pretrained`` (with one pipeline world from the port's driver) at
+  toy sizes on the CPU: each writes its models into its working directory
+  and nothing into the packaged weights; ``eval_quality`` scores the
+  pipeline world;
 * ``train_toy_point_models`` with these reconstruction pools (the hybrid
   celltype head, glia, the compartment geometry, tnet), the port from the
   JAX trainer's initial params: batches and class weights equal, the first
@@ -139,7 +142,7 @@ def test_view_pools_and_batches_equal_jax(wds):
     _same(bj, bt)
 
 
-def test_quality_scores_equal_jax(wds):
+def test_quality_scores_equal_jax(wds, monkeypatch):
     from syconn_tpu.reps.super_segmentation import SuperSegmentationDataset as JS
     from syconn_tpu.utils import quality_metrics as J
     from syconn_tpu_torch.reps.super_segmentation import SuperSegmentationDataset as TS
@@ -167,8 +170,26 @@ def test_quality_scores_equal_jax(wds):
         assert ref[k].keys() == got[k].keys()
         for m in ref[k]:
             assert (np.isnan(ref[k][m]) and np.isnan(got[k][m])) or ref[k][m] == got[k][m], (k, m)
-    with pytest.raises(NotImplementedError, match="item 17"):
+
+    # the fixture's arguments are the JAX package's; without a card no run starts
+    import subprocess
+
+    calls = []
+
+    def record(cmd, **kw):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(subprocess, "run", record)
+    J.run_quality_pipeline(wt, 777)
+    J.run_quality_pipeline(wt, 5, shape=(64, 64, 32), n_cells=4)
+    assert calls[0][1].endswith(os.path.join("examples", "start.py"))
+    assert calls[0][2:] == T.quality_pipeline_argv(wt, 777)
+    assert calls[1][2:] == T.quality_pipeline_argv(wt, 5, (64, 64, 32), 4)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
         T.run_quality_pipeline(wt, 0)
+    assert len(calls) == 2
 
 
 def test_eval_point_models_matches_jax(wds):
@@ -238,7 +259,7 @@ def test_point_trainer_on_pipeline_pools_equal_jax(wds, tmp_path, monkeypatch):
         assert at["meta"] == aj["meta"], name
 
 
-def test_training_clis_write_the_working_directory(wds, tmp_path):
+def test_training_clis_write_the_working_directory(wds, tmp_path, monkeypatch):
     import json
 
     from syconn_tpu_torch.cnn import train_dense, train_points, train_pretrained, train_views
@@ -280,14 +301,38 @@ def test_training_clis_write_the_working_directory(wds, tmp_path):
                           "--tile", "32", "32", "16", "--device", "cpu"])
     assert load_model_meta(os.path.join(wd, "models", "myelin")) == {"task": "myelin", "steps": 2}
 
-    wd = str(tmp_path / "pretrained")
+    # one pipeline world (training seed 0) through the port's driver in a
+    # subprocess, at 40x40x20: the smallest of 32/40/48 voxels across whose
+    # neuron world leaves cells to harvest (2; none at 32x32x16)
+    from syconn_tpu_torch.cnn import toy_points
+
+    wd, pipe = str(tmp_path / "pretrained"), str(tmp_path / "pipe_worlds")
+    seen = []
+    trainer = toy_points.train_toy_point_models
+
+    def record(*a, **kw):
+        seen.append(kw["extra_pools"])
+        return trainer(*a, **kw)
+
+    monkeypatch.setattr(toy_points, "train_toy_point_models", record)
     with port_wd(None):
-        with pytest.raises(NotImplementedError, match="item 17"):
-            train_pretrained.main(["--wd", wd, "--pipeline_worlds", "1", "--device", "cpu"])
-        train_pretrained.main(["--wd", wd, "--n_worlds", "1", "--shape", "48", "48", "24",
+        train_pretrained.main(["--wd", wd, "--n_worlds", "1", "--shape", "40", "40", "20",
                                "--n_cells", "3", "--steps_dense", "1", "--steps_pts", "1",
                                "--dense_tasks", "myelin", "--pts_tasks", "glia",
+                               "--pipeline_worlds", "1", "--pipe_dir", pipe,
                                "--device", "cpu"])
     rep = json.load(open(os.path.join(wd, "train_report.json")))
     assert "myelin_myelin_iou" in rep["dense_heldout_iou"] and "glia" in rep["pts_train"]
+    assert os.path.isfile(os.path.join(pipe, "seed0", "neuron_gt.npz"))
+    assert os.path.isfile(os.path.join(pipe, "seed0", "connectivity_matrix", "conn_mat.csv"))
+    assert len(seen) == 1 and len(seen[0][0]) >= 1  # the harvested cells reach the trainer
     assert _packaged_bytes() == packaged
+
+    # eval_quality scores that pipeline world and writes its report
+    from syconn_tpu_torch.cnn import eval_quality
+
+    with port_wd(None):
+        eval_quality.main(["--keep_wd", pipe, "--seeds", "0", "--skip_run", "--device", "cpu"])
+    rep = json.load(open(os.path.join(pipe, "quality_report.json")))
+    assert rep["seeds"] == [0] and sorted(rep["mean"]) == sorted(rep["per_seed"]["0"]) == [
+        "celltype", "celltype_views", "compartments", "myelin", "spinehead", "synapses"]

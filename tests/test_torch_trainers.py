@@ -75,14 +75,17 @@ def _same(a, b, path=""):
 
 @pytest.mark.parametrize("kw", [dict(shape=(48, 48, 24), n_cells=3, seed=0),
                                 dict(shape=(64, 56, 32), n_cells=4, svs_per_cell=2, seed=5)])
-def test_toy_world_equal_jax(kw):
+def test_toy_world_equal_jax(kw, monkeypatch):
     from syconn_tpu.utils.testdata import generate_toy_world as J
     from syconn_tpu_torch.utils.testdata import generate_toy_world as T
 
     ref, got = J(device=False, **kw), T(**kw)
     _same(ref, got)
     _same(ref, T(device="auto", **kw))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # device=True is the device generator on the card
+    # (tests/test_torch_world_device.py): without one it raises
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
         T(device=True, **kw)
 
 
@@ -132,6 +135,11 @@ def test_model_performance_and_file_timer(tmp_path):
     cases = [(np.array([[0.9, 0.1], [0.2, 0.8], [0.7, 0.3]]), np.array([0, 1, 0]))]
     cases += [(rng.random((n, 4)), rng.integers(0, 5, n)) for n in (5, 40, 200)]
     cases += [(rng.integers(0, 3, 30), rng.integers(1, 4, 30))]
+    # no prediction right (scikit-learn prints the supports as floats), and
+    # one class all wrong beside a right one (integers)
+    cases += [(np.array([1, 1, 0, 0]), np.array([0, 0, 1, 1])),
+              (np.array([1, 2, 0]), np.array([0, 1, 2])),
+              (np.array([1, 1, 0, 0, 2]), np.array([0, 0, 1, 1, 2]))]
     for probas, labels in cases:
         assert T.model_performance(probas, labels) == J.model_performance(probas, labels)
     T.model_performance(*cases[0], model_dir=str(tmp_path / "m"), prefix="glia")
