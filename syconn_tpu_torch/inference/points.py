@@ -37,6 +37,7 @@ __all__ = [
     "global_morph_scalars",
     "append_global_scalars",
     "extract_contexts",
+    "vote_context_labels",
     "ContextPredictor",
     "ContextPipeline",
     "predict_celltype_ssd",
@@ -232,6 +233,17 @@ def extract_contexts(
         ctxs[i, :, 3:] = onehot
         idx_lists.append(ixs)
     return ctxs, idx_lists
+
+
+def vote_context_labels(out: np.ndarray, idx_lists: List[np.ndarray], n_points: int) -> np.ndarray:
+    """Per-point labels of the standalone examples: every context adds its
+    points' softmax probabilities (float32) to the points it sampled, and
+    each point takes the class with the most votes."""
+    vote = np.zeros((n_points, out.shape[-1]), np.float32)
+    for m, ixs in enumerate(idx_lists):
+        probs = np.exp(out[m]) / np.exp(out[m]).sum(-1, keepdims=True)
+        np.add.at(vote, ixs, probs)
+    return np.argmax(vote, axis=-1)
 
 
 class ContextPredictor:

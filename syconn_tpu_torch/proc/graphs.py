@@ -120,6 +120,25 @@ class AdjacencyGraph:
     def is_connected(self) -> bool:
         return len(self._node) > 0 and sum(1 for _ in self.connected_components()) == 1
 
+    def subgraph(self, nodes: Iterable) -> "AdjacencyGraph":
+        """``networkx.Graph.subgraph(nodes).copy()``, orders included: the
+        view walks the Python set of ``nodes`` when that set is less than
+        half the graph, else the graph's node order; each node's neighbours
+        stay in insertion order."""
+        keep = set(n for n in nodes if n in self._node)
+        if 2 * len(keep) < len(self._node):
+            order = [n for n in keep if n in self._node]
+        else:
+            order = [n for n in self._node if n in keep]
+        out = AdjacencyGraph()
+        for n in order:
+            out.add_node(n, **self._node[n])
+        for u in order:
+            for v, dd in self._adj[u].items():
+                if v in keep:
+                    out.add_edge(u, v, **dd)
+        return out
+
 
 def graph_nodes(g: Dict[str, np.ndarray]) -> np.ndarray:
     """A graph dict's sorted unique nodes, those of its edges included."""

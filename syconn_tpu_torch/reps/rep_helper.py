@@ -5,8 +5,9 @@ shard, ``subfold_from_ix_OLD`` is digit-based), the inverse
 ``ix_from_subfold``, ``get_unique_subfold_ixs``, ``surface_samples`` and
 the working-directory plumbing of the dataset classes, and
 ``colorcode_vertices`` (labels onto mesh vertices by k-nearest majority, for
-the spine-head volumes of step 7). ``knossos_ml_from_sso`` (kzip export)
-and ``assign_rep_values`` come with the items that use them.
+the spine-head volumes of step 7) and ``knossos_ml_from_sso`` (a cell's
+KNOSSOS merge list, for the kzip export). ``assign_rep_values`` comes with
+the item that uses it.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ __all__ = [
     "get_unique_subfold_ixs",
     "surface_samples",
     "colorcode_vertices",
+    "knossos_ml_from_sso",
     "SegmentationBase",
 ]
 
@@ -157,6 +159,17 @@ def colorcode_vertices(
         return labels
     colors = np.asarray(colors)
     return colors[labels]
+
+
+def knossos_ml_from_sso(sso, comment: Optional[str] = None) -> str:
+    """KNOSSOS merge-list text of one cell: ``"<id> 0 <comment> <sv ids>"``
+    and its rep coord, as the JAX package writes it."""
+    sv_ids = np.array(sso.sv_ids, dtype=np.uint64)
+    txt = f"{sso.id} 0 {comment or ''} "
+    txt += " ".join(str(ix) for ix in sv_ids)
+    cc = np.array(sso.rep_coord, dtype=np.int64)
+    txt += f"\n{cc[0]} {cc[1]} {cc[2]}\n\n\n"
+    return txt
 
 
 class SegmentationBase:

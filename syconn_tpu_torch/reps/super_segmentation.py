@@ -22,8 +22,10 @@ JAX package's format, a pickled list of (sv, sv) edges.
 
 The point-model and view-model predictions, rendering and the cell helpers
 of steps 7-9 are here (each device method takes ``device``: ``None`` is the
-CUDA card); the kzip export methods raise ``NotImplementedError`` naming
-their ROADMAP item.
+CUDA card), and the kzip export methods (skeleton, meshes, merge list,
+sample locations, the whole cell for ``proc/ssd_assembly.py``). A cell
+loaded from an archive (``_standalone``) has no working directory and
+answers only with the meshes the archive held.
 """
 
 from __future__ import annotations
@@ -40,10 +42,6 @@ from .rep_helper import SegmentationBase, subfold_from_ix
 from .segmentation import SegmentationDataset, SegmentationObject
 
 __all__ = ["SuperSegmentationObject", "SuperSegmentationDataset", "save_dataset_deep"]
-
-_NO_KZIP = ("kzip export of cells is not ported yet: ROADMAP Queue 1, item 14 (cell editing "
-            "and kzip)")
-
 
 class SuperSegmentationObject(SegmentationBase):
     def __init__(
@@ -72,6 +70,7 @@ class SuperSegmentationObject(SegmentationBase):
         self.skeleton: Optional[dict] = None
         self._sv_graph: Optional[Dict[str, np.ndarray]] = None
         self._sd_cache: Dict[str, SegmentationDataset] = {}
+        self._standalone = False  # loaded from a k.zip (proc/ssd_assembly.py)
 
     def _default_version(self):
         try:
@@ -225,6 +224,8 @@ class SuperSegmentationObject(SegmentationBase):
         ``mesh_{obj_type}.pkl`` after the first merge."""
         if obj_type in self._meshes:
             return self._meshes[obj_type]
+        if self._standalone:
+            return [np.zeros(0, np.int64), np.zeros(0, np.float32), np.zeros(0, np.float32)]
         p = self.mesh_path(obj_type)
         mesh = None
         if os.path.isfile(p):
@@ -482,26 +483,81 @@ class SuperSegmentationObject(SegmentationBase):
         return render_sso_coords_index_views(self, coords_nm, **kw)
 
     # ----------------------------------------------------------------- kzip
-    def skeleton_to_kzip(self, *args, **kw):
-        raise NotImplementedError(_NO_KZIP)
+    def skeleton_to_kzip(self, path: Optional[str] = None):
+        """The skeleton as a KNOSSOS annotation (``annotation.xml``)."""
+        from ..skeleton.io import skeleton_to_kzip as _to_kzip
 
-    def mesh2kzip(self, *args, **kw):
-        raise NotImplementedError(_NO_KZIP)
+        if not self.load_skeleton():
+            raise ValueError("No skeleton available.")
+        _to_kzip(self.skeleton, path or self.skeleton_kzip_path, scaling=self.scaling)
 
-    def meshes2kzip(self, *args, **kw):
-        raise NotImplementedError(_NO_KZIP)
+    def mesh2kzip(self, path: str, obj_type: str = "sv", color=None):
+        """The merged mesh of ``obj_type`` as ``<obj_type>.ply``."""
+        from ..proc.meshes import write_mesh2kzip
 
-    def export2kzip(self, *args, **kw):
-        raise NotImplementedError(_NO_KZIP)
+        m = self.load_mesh(obj_type)
+        write_mesh2kzip(path, m[0], m[1], m[2] if len(m) > 2 else None, color, f"{obj_type}.ply")
 
-    def mergelist2kzip(self, *args, **kw):
-        raise NotImplementedError(_NO_KZIP)
+    def meshes2kzip(self, path: str, obj_types=("sv", "mi", "vc", "syn_ssv")):
+        """Every object type's mesh into one archive, one PLY each (types
+        without a mesh are left out)."""
+        for ot in obj_types:
+            try:
+                m = self.load_mesh(ot)
+            except Exception:
+                continue
+            if m is None or len(m[1]) == 0:
+                continue
+            self.mesh2kzip(path, obj_type=ot)
+        return path
 
-    def write_locations2kzip(self, *args, **kw):
-        raise NotImplementedError(_NO_KZIP)
+    def export2kzip(self, path: str, obj_types=("sv", "mi", "vc", "syn_ssv")):
+        """The whole cell (meshes, skeleton, attributes) as a standalone
+        archive, loaded back by ``proc/ssd_assembly.init_sso_from_kzip``."""
+        from ..proc.ssd_assembly import save_sso_to_kzip
 
-    def write_svmeshes2kzip(self, *args, **kw):
-        raise NotImplementedError(_NO_KZIP)
+        return save_sso_to_kzip(self, path, mesh_types=obj_types)
+
+    def mergelist2kzip(self, path: Optional[str] = None):
+        """The KNOSSOS merge list of the cell's supervoxels
+        (``mergelist.txt``)."""
+        from ..handler.basics import write_txt2kzip
+        from .rep_helper import knossos_ml_from_sso
+
+        path = path or self.skeleton_kzip_path
+        write_txt2kzip(path, knossos_ml_from_sso(self), "mergelist.txt")
+        return path
+
+    def write_locations2kzip(self, path: Optional[str] = None):
+        """The rendering sample locations as a KNOSSOS annotation
+        (``sample_locations.nml``, nodes in voxels)."""
+        from ..handler.basics import write_txt2kzip
+        from ..skeleton.io import skeleton_to_nml
+
+        locs = np.concatenate(self.sample_locations())
+        scale = np.asarray(self.scaling, np.float64)
+        skel = {
+            "nodes": locs / scale[None],
+            "edges": np.zeros((0, 2), np.int64),
+            "diameters": np.full(len(locs), 10.0, np.float32),
+        }
+        path = path or self.skeleton_kzip_path
+        write_txt2kzip(path, skeleton_to_nml(skel, comment=f"locations ssv {self.id}"),
+                       "sample_locations.nml")
+        return path
+
+    def write_svmeshes2kzip(self, path: Optional[str] = None):
+        """Each supervoxel's mesh as its own PLY (``sv_<id>.ply``)."""
+        from ..proc.meshes import write_mesh2kzip
+
+        path = path or self.skeleton_kzip_path
+        for sv in self.svs:
+            m = sv.mesh
+            if m is None or len(m[1]) == 0:
+                continue
+            write_mesh2kzip(path, m[0], m[1], m[2] if len(m) > 2 else None, None,
+                            f"sv_{sv.id}.ply")
+        return path
 
     def __repr__(self):
         return f"SuperSegmentationObject(id={self.id}, version={self.version})"

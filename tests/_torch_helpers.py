@@ -117,3 +117,54 @@ def compare_datasets(wj, wt, types, skip=()):
                     _same(ms[0][k], ms[1][k], f"{t}/{rel}/{k}")
                 continue
             _same(pj[rel], pt[rel], f"{t}/{rel}")
+
+
+def build_jax_sso_world(root, cells_dir=None):
+    """The cells of ``tests/test_sso_methods.py::sso_world`` (a 96x96x48
+    toy world of 2 cells x 2 SVs, seed 8: SV dataset, graph, SSD, skeletons)
+    built by the JAX package in ``<root>/wd``; with ``cells_dir`` every cell
+    is also exported there by the JAX package's ``export2kzip``. The JAX
+    package's working directory is what it was before. Returns the wd."""
+    from syconn_tpu import global_params
+    from syconn_tpu.exec.exec_init import (init_cell_subcell_sds, run_create_neuron_ssd,
+                                           run_create_rag)
+    from syconn_tpu.exec.exec_skeleton import run_skeleton_generation
+    from syconn_tpu.handler.basics import clear_kd_cache
+    from syconn_tpu.handler.config import generate_default_conf
+    from syconn_tpu.io.chunked import ChunkedVolume
+    from syconn_tpu.io.graph import save_svgraph
+    from syconn_tpu.utils.testdata import generate_toy_world
+
+    wd = os.path.join(str(root), "wd")
+    prev = global_params.wd
+    clear_kd_cache()
+    with jax_defaults_isolated():
+        generate_default_conf(
+            wd, scaling=(10, 10, 20),
+            key_value_pairs=[("min_cc_size_ssv", 200),
+                             ("skeleton", {"kimimaro_skelgen": {"dust_threshold": 100},
+                                           "kimimaro_merge": {"dust_threshold": 100,
+                                                              "tick_threshold": 200}})],
+            force_overwrite=True)
+        try:
+            global_params.wd = wd
+            global_params.config._parse_config()
+            global_params.config.entries["process_cell_organelles"] = []
+            cfg = global_params.config
+            world = generate_toy_world(shape=(96, 96, 48), n_cells=2, svs_per_cell=2, seed=8)
+            kd = ChunkedVolume.create(cfg.kd_seg_path, scale=(10, 10, 20),
+                                      boundary=world["seg"].shape, chunk_shape=(96, 96, 48))
+            kd.save_seg(world["seg"])
+            save_svgraph(world["rag"], cfg.init_svgraph_path)
+            init_cell_subcell_sds(chunk_size=(96, 96, 48), overwrite=True)
+            run_create_rag()
+            ssd = run_create_neuron_ssd()
+            run_skeleton_generation(map_myelin=False, cube_size=(96, 96, 48))
+            if cells_dir is not None:
+                for i in ssd.ssv_ids:
+                    ssd.get_super_segmentation_object(int(i)).export2kzip(
+                        os.path.join(str(cells_dir), f"{int(i)}.k.zip"))
+        finally:
+            global_params.wd = prev
+            clear_kd_cache()
+    return wd

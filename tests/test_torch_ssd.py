@@ -4,7 +4,8 @@ one) answers the same lookups; astrocyte splitting (``remove_glia_nodes``,
 ``split_glia_graph``) on dict graphs gives the JAX package's partition on
 networkx graphs, every component-size flip included; the kNN coordinate
 graph equals networkx's edge for edge; ``SuperSegmentationObject`` keeps the
-JAX package's SV-graph file format, and its ported-later methods raise.
+JAX package's SV-graph file format, and its later methods run (the kzip
+export round trip; the card-only ones raise without a card).
 Steps 3-4 as a whole: tests/test_torch_cells.py."""
 
 import os
@@ -124,8 +125,17 @@ def test_sso_sv_graph_file_and_later_methods(tmp_path, monkeypatch):
     assert again.sv_ids.tolist() == [3, 7, 9]
     ssd.build_sv2ssv_index()
     assert ssd.sv2ssv_ids(np.array([9, 3], np.uint64)).tolist() == [3, 3]
-    with pytest.raises(NotImplementedError, match="item 14"):
-        sso.export2kzip()
+    # the kzip export round trip: this cell has no mesh and no skeleton, so
+    # the archive holds its id, scaling and attributes (``sv_ids`` as
+    # save_dataset_deep would have written them)
+    from syconn_tpu_torch.proc.ssd_assembly import init_sso_from_kzip
+
+    sso.save_attributes(["sv_ids"], [sso.sv_ids])
+    path = sso.export2kzip(str(tmp_path / "cell.k.zip"))
+    back = init_sso_from_kzip(path)
+    assert back._standalone and back.id == 3 and back.sv_ids.tolist() == [3, 7, 9]
+    np.testing.assert_array_equal(back.scaling, sso.scaling)
+    assert len(back.load_mesh("sv")[1]) == 0 and not back.load_skeleton()
     # steps 7-9 and the views are ported: the cell type runs the celltype
     # net and the views the renderer (here the card is hidden, so both ask
     # for one), and a cell without spine labels has no spine compartments
