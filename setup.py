@@ -12,6 +12,7 @@ setup(
         "syconn_tpu.analysis": ["viewer.html"],
         "syconn_tpu_torch.ops": ["csrc/*.cu", "csrc/*.cpp"],
         "syconn_tpu_torch.handler": ["default_config.yml"],
+        "syconn_tpu_torch.analysis": ["viewer.html"],
         "syconn_tpu.models": ["pretrained/*/arch.json",
                               "pretrained/*/params.msgpack",
                               "pretrained/*/meta.json"],
@@ -34,6 +35,7 @@ setup(
             "syconn.server=syconn_tpu.analysis.server:main",
             "syconn.example=syconn_tpu.examples.start:main",
             "syconn.example_torch=syconn_tpu_torch.examples.start:main",
+            "syconn.server_torch=syconn_tpu_torch.analysis.server:main",
         ]
     },
 )

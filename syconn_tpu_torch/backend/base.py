@@ -36,9 +36,11 @@ _ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
 _tls = threading.local()
 
 
-def _compress(data: bytes) -> bytes:
+def _compress(data: bytes, level: int = 3) -> bytes:
     if _zstd is None:
-        return zlib.compress(data, 3)
+        return zlib.compress(data, min(level, 9))
+    if level != 3:
+        return _zstd.ZstdCompressor(level=level).compress(data)
     c = getattr(_tls, "cctx", None)
     if c is None:
         c = _tls.cctx = _zstd.ZstdCompressor(level=3)

@@ -15,11 +15,12 @@ Usage::
 Every flag of the JAX driver is kept, with its default and behaviour.
 ``--device`` (the card unless ``cpu``) replaces the JAX driver's link
 probe and is resolved before anything is written. ``--shard_pipeline``
-(multi-device, ROADMAP Queue 1 item 11) and ``--run_server`` (item 16)
-raise. Departures from the JAX driver: trained models go to
-``<wd>/models/`` (``DynConfig.model_target``), never over the packaged
-weights; ``timing.json`` keeps the step seconds of an earlier run only when
-that run had the same shape, cell count and world.
+(multi-device, ROADMAP Queue 1 item 11) raises. ``--run_server`` serves the
+finished working directory with ``analysis/server.py`` on port 10001 once
+``timing.json`` is written, until interrupted. Departures from the JAX
+driver: trained models go to ``<wd>/models/`` (``DynConfig.model_target``),
+never over the packaged weights; ``timing.json`` keeps the step seconds of
+an earlier run only when that run had the same shape, cell count and world.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import json
 import logging
 import os
 import shutil
+import sys
 import time
 
 import numpy as np
@@ -39,7 +41,7 @@ __all__ = ["main", "parse_args"]
 
 def parse_args(argv=None) -> argparse.Namespace:
     """The JAX driver's arguments and ``--device``. ``--shard_pipeline``
-    and ``--run_server`` raise here, before any work."""
+    raises here, before any work."""
     parser = argparse.ArgumentParser(description="syconn_tpu_torch example run")
     parser.add_argument("--working_dir", type=str, default="")
     parser.add_argument("--shape", type=int, nargs=3, default=[256, 256, 128],
@@ -103,10 +105,6 @@ def parse_args(argv=None) -> argparse.Namespace:
         raise NotImplementedError(
             "--shard_pipeline (the pipeline sharded over several devices) is ROADMAP Queue 1 "
             "item 11 and is not ported yet")
-    if args.run_server:
-        raise NotImplementedError(
-            "--run_server (the analysis server, analysis/server.py) is ROADMAP Queue 1 item 16 "
-            "and is not ported yet")
     return args
 
 
@@ -438,6 +436,11 @@ def main(argv=None, stats=None) -> None:
 
     log.info("\n" + ftimer.prepare_report())
     _write_timing_json(wd, args, ftimer)
+    if args.run_server:
+        from ..analysis.server import main as server_main
+
+        sys.argv = ["syconn.server", f"--working_dir={wd}", "--port=10001"]
+        server_main()
 
 
 if __name__ == "__main__":

@@ -382,3 +382,46 @@ class ChunkedVolume:
             if mag not in self._meta["mags"]:
                 self._meta["mags"] = sorted(set(self._meta["mags"]) | {mag})
                 self._save_meta()
+
+    # --------------------------------------------------- reference-style init
+    @classmethod
+    def initialize_from_matrix(
+        cls,
+        path: str,
+        scale,
+        experiment_name: str,
+        data: Optional[np.ndarray] = None,
+        data_path: Optional[str] = None,
+        hdf5_names: Optional[Sequence[str]] = None,
+        offset=(0, 0, 0),
+        boundary=None,
+        mags: Sequence[int] = (1,),
+        chunk_shape=(256, 256, 256),
+        fast_downsampling: bool = True,
+        channel: str = "raw",
+    ) -> "ChunkedVolume":
+        """Create a volume from an in-memory array, or from the first of
+        ``hdf5_names`` in the HDF5 file ``data_path`` (through
+        ``handler.compression.load_from_h5py``, which needs h5py), and write
+        it at every mag of ``mags`` (``fast_downsampling`` is accepted and
+        unused, as in the JAX package)."""
+        if data is None:
+            from ..handler.compression import load_from_h5py
+
+            data = load_from_h5py(data_path, hdf5_names=list(hdf5_names))[0]
+        data = np.asarray(data)
+        if boundary is None:
+            boundary = np.array(data.shape, dtype=np.int64)
+        cv = cls.create(
+            path,
+            scale=scale,
+            boundary=boundary,
+            experiment_name=experiment_name,
+            chunk_shape=chunk_shape,
+            mags=mags,
+        )
+        if channel == "raw":
+            cv.save_raw(data, offset=offset, mags=mags, data_mag=1)
+        else:
+            cv.save_seg(data, offset=offset, mags=mags, data_mag=1)
+        return cv

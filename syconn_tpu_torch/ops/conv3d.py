@@ -2,8 +2,8 @@
 and their plain PyTorch versions.
 
 Counterparts of the Pallas kernels in ``syconn_tpu/ops/conv3d_pallas.py``
-(``conv3x3x3_ln_gelu`` :70, ``conv_transpose2x_bias`` :261,
-``conv_down2x_bias`` :393). All three run the wgmma kernel of
+(``conv3x3x3_ln_gelu`` :71, ``conv_transpose2x_bias`` :262,
+``conv_down2x_bias`` :394). All three run the wgmma kernel of
 ``csrc/conv3d_wgmma.cu``; only a SAME conv whose head does not fit its shared
 memory runs the mma.sync kernel of ``csrc/conv3d.cu``.
 

@@ -1,7 +1,7 @@
 // Contact-site window majority vote for Hopper (sm_90a), plain C interface.
 //
 // Replaces the Pallas TPU kernel `_detect_cs_pallas`
-// (syconn_tpu/ops/contacts_pallas.py:45): for every voxel of an (x, y) tile
+// (syconn_tpu/ops/contacts_pallas.py:46): for every voxel of an (x, y) tile
 // column, over the full z extent, the candidate label that is most frequent
 // in the (sx, sy, sz) window around the voxel wins. The voxel's own label, 0
 // and INT_MAX never count; ties go to the candidate visited first (the

@@ -9,14 +9,16 @@ JAX package's host world.
 
 The dense fields of large worlds can come from the device generator
 (``utils/testdata_device.py``); the world is then statistically equivalent
-to the host world, not byte-identical. Left for later: ``write_toy_world``
-(HDF5 through ``handler/compression.py``), ROADMAP Queue 1 item 15.
+to the host world, not byte-identical. ``write_toy_world`` writes a world
+as one HDF5 file per volume (through ``handler/compression.py``, which
+needs h5py) and the supervoxel graph.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Dict, Sequence
+import os
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -26,7 +28,7 @@ from .device import default_device
 
 log = logging.getLogger("syconn_tpu_torch.testdata")
 
-__all__ = ["auto_world_device", "generate_toy_world"]
+__all__ = ["auto_world_device", "generate_toy_world", "write_toy_world"]
 
 
 AUTO_DEVICE_MVX = 32.0
@@ -415,3 +417,21 @@ def _generate_toy_world_device(shape, n_cells, svs_per_cell, seed, scale, device
         "rag": rag,
         "sv2cell": sv2cell,
     }
+
+
+def write_toy_world(h5_dir: str, world: Optional[dict] = None, **kw) -> dict:
+    """Write a toy world (generated from ``kw`` where ``world`` is None) as
+    ``<name>.h5`` per volume (one dataset named like the file) and the
+    supervoxel graph ``neuron_rag.bz2``, for external tools;
+    ``examples/start.py`` builds its world in memory and does not read this
+    layout. Returns the world."""
+    from ..handler.compression import save_to_h5py
+    from ..io.graph import save_svgraph
+
+    os.makedirs(h5_dir, exist_ok=True)
+    if world is None:
+        world = generate_toy_world(**kw)
+    for name in ["raw", "seg", "mi", "vc", "sj", "sym", "asym", "er", "golgi"]:
+        save_to_h5py({name: world[name]}, os.path.join(h5_dir, f"{name}.h5"))
+    save_svgraph(world["rag"], os.path.join(h5_dir, "neuron_rag.bz2"))
+    return world

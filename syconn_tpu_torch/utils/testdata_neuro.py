@@ -1,7 +1,7 @@
 """Neuron-morphology synthetic world: tubular cells with ground truth
 (the port's copy of ``syconn_tpu/utils/testdata_neuro.py``: numpy and
-scipy only, the same world for the same seed; ``write_neuron_world``, which
-writes HDF5, is ROADMAP Queue 1 item 15).
+scipy only, the same world for the same seed; ``write_neuron_world`` writes
+it as HDF5, which needs h5py).
 
 The Voronoi toy world (`utils/testdata.py`) exercises the pipeline's
 plumbing but carries no morphological ground truth — its "cells" are
@@ -45,7 +45,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 from scipy import ndimage
 
-__all__ = ["generate_neuron_world", "CELLTYPE_NAMES"]
+__all__ = ["generate_neuron_world", "write_neuron_world", "CELLTYPE_NAMES"]
 
 CELLTYPE_NAMES = {0: "EA", 1: "IN", 2: "MSN", 3: "GLIA"}
 
@@ -644,3 +644,30 @@ def generate_neuron_world(
         "syn_gt": syn_gt,
         "cells_meta": cells_meta,
     }
+
+
+def write_neuron_world(h5_dir: str, world: Optional[dict] = None, **kw) -> dict:
+    """Write a neuron world (generated from ``kw`` where ``world`` is None)
+    as ``utils/testdata.py::write_toy_world`` writes a toy world, plus the
+    ground-truth extras as ``neuron_gt.npz`` next to the files.
+    ``examples/start.py`` builds its world in memory and does not read this
+    layout. Returns the world."""
+    import os
+
+    from .testdata import write_toy_world
+
+    world = write_toy_world(h5_dir, world if world is not None else generate_neuron_world(**kw))
+    np.savez_compressed(
+        os.path.join(h5_dir, "neuron_gt.npz"),
+        celltype_gt=world["celltype_gt"],
+        compart=world["compart"],
+        spiness=world["spiness"],
+        myelin=world["myelin"],
+        syn_coords=np.asarray([s["coord_vx"] for s in world["syn_gt"]],
+                              np.float64).reshape(-1, 3),
+        syn_pre=np.asarray([s["pre_cell"] for s in world["syn_gt"]], np.int64),
+        syn_post=np.asarray([s["post_cell"] for s in world["syn_gt"]], np.int64),
+        syn_sign=np.asarray([1 if s["sign"] == "asym" else -1
+                             for s in world["syn_gt"]], np.int8),
+    )
+    return world

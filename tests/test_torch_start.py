@@ -2,8 +2,10 @@
 the JAX package's (``examples/start.py``) on the CPU, on a Voronoi world and
 on a neuron world with the quality fixture's two ``--kv`` overrides.
 
-The JAX package runs in a subprocess on the CPU (``JAX_PLATFORMS=cpu``):
-its driver ``examples/start.py`` up to step 6 (``--until_step 6``), then
+The JAX package runs in a subprocess on one CPU device
+(``JAX_PLATFORMS=cpu``, without the suite's 8 virtual devices, so that its
+driver runs serially, as the port's does): its driver
+``examples/start.py`` up to step 6 (``--until_step 6``), then
 its steps 7-9 and the export under ``jax.disable_jit()``, as ``start.py``
 calls them (the port follows flax's eager ``apply``, which the jitted nets
 differ from by a median relative 1e-3, ROADMAP Queue 3 item 7); meanwhile
@@ -101,6 +103,12 @@ def _start_jax_side(wd, args, log):
     into the file ``log``."""
     env = dict(os.environ, JAX_PLATFORMS="cpu", SYCONN_TPU_PLATFORM="cpu")
     env.pop("syconn_wd", None)
+    # one CPU device, as the port has: with the suite's 8 virtual devices
+    # (tests/conftest.py) the JAX driver shards its steps over them, and
+    # XLA:CPU aborts the process when the threads of a collective do not all
+    # arrive within 40 s, which happens on a loaded machine
+    env["XLA_FLAGS"] = " ".join(f for f in env.get("XLA_FLAGS", "").split()
+                                if not f.startswith("--xla_force_host_platform_device_count"))
     argv = ["--working_dir", wd, *args, "--overwrite", "--until_step", "6"]
     with open(log, "w") as f:
         return subprocess.Popen(

@@ -14,8 +14,10 @@ driver):
   the prepared working directory, and ``timing.json`` keeps the steps of
   both runs; a run of another shape starts the file afresh;
 * ``--kv`` values read as ``yaml.safe_load`` reads them;
-* ``--shard_pipeline``, ``--run_server`` and a run without a card and
-  without ``--device cpu`` raise before anything is written.
+* ``--shard_pipeline`` and a run without a card and without
+  ``--device cpu`` raise before anything is written;
+* ``--run_server`` calls the port's server ``main`` with the JAX driver's
+  arguments once ``timing.json`` is written.
 """
 
 import argparse
@@ -174,11 +176,34 @@ def test_refusals_before_anything_is_written(tmp_path, monkeypatch):
     wd = str(tmp_path / "wd")
     with pytest.raises(NotImplementedError, match="item 11"):
         start.main(["--working_dir", wd, *BASE, "--device", "cpu", "--shard_pipeline"])
-    with pytest.raises(NotImplementedError, match="item 16"):
-        start.main(["--working_dir", wd, *BASE, "--device", "cpu", "--run_server"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         start.main(["--working_dir", wd, *BASE])
     with pytest.raises(RuntimeError, match="CUDA"):
         start.main(["--working_dir", wd, *BASE, "--device", "cuda"])
     assert not os.path.exists(wd)
+
+
+def test_run_server_after_timing_json(tmp_path, monkeypatch):
+    """The JAX driver's ``--run_server`` (``start.py:393-397``): after
+    ``timing.json``, ``sys.argv`` becomes the server's arguments and the
+    server's ``main`` runs (recorded here instead of binding port 10001)."""
+    import sys
+
+    from syconn_tpu_torch.analysis import server
+
+    wd = str(tmp_path / "wd")
+    seen = {}
+
+    def fake_main(argv=None):
+        seen["argv"] = list(sys.argv)
+        seen["timing"] = _timing(wd)
+
+    monkeypatch.setattr(server, "main", fake_main)
+    monkeypatch.setattr(sys, "argv", list(sys.argv))
+    _run(wd, "--until_step", "6", "--run_server")
+    assert seen["argv"] == ["syconn.server", f"--working_dir={wd}", "--port=10001"]
+    assert seen["timing"] == _timing(wd) and "Synapse detection" in seen["timing"]["steps_s"]
+    seen.clear()
+    _run(wd, "--until_step", "0")  # the JAX driver returns before serving here too
+    assert seen == {}
