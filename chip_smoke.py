@@ -116,7 +116,17 @@ Phases, each failing the run on error:
      counted against the SSD and the matrix; then ``cnn/eval_dense.py`` on
      the card and on the CPU (IoUs within ``EVAL_DENSE_IOU_ATOL``, conv
      launches equal to dispatches x launches a tile, every conv layer of the
-     four U-Nets at eval_dense's tile shapes against its plain version).
+     four U-Nets at eval_dense's tile shapes against its plain version);
+ 17. multi-device (``phase_slice_sharded``, last): on a logical mesh of 4
+     positions on the card (and again on the real cards where there are
+     several), step 2's object extraction and property/pair scans, step 6a's
+     contact tables (the column kernel once a shard, and against its plain
+     version on one shard's window), ``predict_dense_to_kd`` with the
+     syntype U-Net over a ``data`` axis, the compartment point net over
+     ``data``, three organelles U-Net training steps on a data x tp mesh and
+     the GPipe pipeline at width 1024, each against its serial run; then
+     the driver's run B with ``--shard_pipeline`` against run B. On one card
+     the logical shards run one after another: their seconds are overhead.
 
 Phase 4's reference check also holds the organelles U-Net, layer by layer
 and end to end, to its own budget (``ORG_BUDGET``), on two seeded inputs.
@@ -3650,6 +3660,462 @@ def phase_slice_analysis(dev, work: str) -> dict:
     return card_launches
 
 
+# slice sharded: the multi-device layer on a logical mesh of SHARD_N
+# positions on the one card (and on the real cards where there are several)
+SHARD_N = 4
+SHARD_SHAPE = (512, 512, 256)  # the volumes of the earlier slices
+SHARD_CHUNK = (128, 128, 64)  # the driver's chunk: 4 x-chunks over 512 voxels
+SHARD_TILE = dict(tile_shape=(256, 256, 128), halo=(32, 32, 16))  # the deployment tile
+SHARD_POINTS = dict(task="compartment_pts", npoints=2048, contexts=32, batch=16)
+SHARD_TRAIN = dict(steps=3, batch=4, tile=(64, 64, 32), lr=1e-3, loss_rtol=1e-4,
+                   param_median=1e-5)
+SHARD_PIPE = dict(width=1024, microbatches=8, rows=64, steps=5, lr=1e-4, atol=1e-5)
+
+
+def _sync(dev):
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _shard_meshes(dev):
+    """(label, devices): the logical mesh, then the real cards if several."""
+    import torch
+
+    out = [("logical", [dev] * SHARD_N)]
+    n = torch.cuda.device_count() if torch.device(dev).type == "cuda" else 1
+    if n > 1:
+        out.append(("cards", [torch.device("cuda", i) for i in range(4 if n >= 4 else 2)]))
+    return out
+
+
+def _timed_run(dev, fn):
+    _sync(dev)
+    t0 = time.perf_counter()
+    res = fn()
+    _sync(dev)
+    return res, time.perf_counter() - t0
+
+
+def _sharded_step2(dev, work, devs, shape=None):
+    """(a) ``from_probabilities_to_kd`` on the blob maps of ``slice objects``
+    and the property and pair scans of the contact slice's cells, serial (a
+    one-position mesh) and split over ``sp``: volumes and tables equal."""
+    import numpy as np
+
+    from syconn_tpu_torch.extraction.object_extraction import from_probabilities_to_kd
+    from syconn_tpu_torch.io.chunked import ChunkedVolume
+    from syconn_tpu_torch.parallel.device import get_device_mesh
+    from syconn_tpu_torch.proc.sd_proc import map_subcell_extract_props_tables
+
+    shape = shape or SHARD_SHAPE
+    meshes = {"serial": get_device_mesh(axis_names=("sp",), devices=devs[:1]),
+              "sharded": get_device_mesh(axis_names=("sp",), devices=devs)}
+    co_cfg = cell_objects()
+    secs = {"serial": 0.0, "sharded": 0.0}
+    parts = {}  # seconds of the extraction and of the scans, per mode
+    segs, objects = {}, {}
+    for co in ("mi", "vc"):
+        vols = {}
+        for mode, mesh in meshes.items():
+            target = os.path.join(work, f"sharded_{co}_seg_{mode}")
+            st, dt = _timed_run(dev, lambda: from_probabilities_to_kd(
+                os.path.join(work, f"{co}_prob"), target,
+                thresh_uint8=float(co_cfg["probathresholds"][co]) * 255.0,
+                morph_ops=co_cfg["extract_morph_op"][co],
+                min_seed_vx=int(co_cfg["min_seed_vx"].get(co, 1)), chunk_shape=SHARD_CHUNK,
+                cache_root=os.path.join(work, "sharded_cache"), device=dev, mesh=mesh))
+            secs[mode] += dt
+            parts[f"extraction_{mode}_s"] = parts.get(f"extraction_{mode}_s", 0.0) + dt
+            want = "sharded" if mode == "sharded" else "device"
+            if st["route"] != want:
+                raise AssertionError(f"sharded {co} {mode}: took the {st['route']} route")
+            vols[mode] = ChunkedVolume.open(target).load_seg(size=shape)
+            objects[(co, mode)] = st["n_objects"]
+        if not vols["serial"].any() or not np.array_equal(vols["serial"], vols["sharded"]):
+            raise AssertionError(f"sharded {co}: segmentation empty or sharded != serial")
+        segs[co] = os.path.join(work, f"sharded_{co}_seg_sharded")
+    scans = {}
+    for mode, mesh in meshes.items():
+        scans[mode], dt = _timed_run(dev, lambda: map_subcell_extract_props_tables(
+            os.path.join(work, "sv_seg"), segs, chunk_shape=SHARD_CHUNK,
+            min_obj_vx=co_cfg["min_obj_vx"], cache_root=os.path.join(work, "sharded_cache"),
+            device=dev, device_mesh=mesh))
+        secs[mode] += dt
+        parts[f"scan_{mode}_s"] = dt
+    ser, sha = scans["serial"], scans["sharded"]
+    if (ser["stats"]["cell_route"], sha["stats"]["cell_route"]) != ("host", "sharded"):
+        raise AssertionError(f"sharded scan: routes {ser['stats']['cell_route']}/"
+                             f"{sha['stats']['cell_route']}")
+    for k in ("tables", "mapping", "sc_sizes", "counts"):
+        if not _same(ser[k], sha[k]):
+            raise AssertionError(f"sharded scan: {k} sharded != serial")
+    line = dict(objects={f"{c}_{m}": n for (c, m), n in objects.items()}, counts=sha["counts"],
+                serial_s=secs["serial"], sharded_s=secs["sharded"], **parts)
+    log("slice sharded step2 " + json.dumps(line))
+    return secs
+
+
+def _sharded_contacts(dev, work, devs, shape=None):
+    """(b) ``extract_contact_site_tables`` on the contact slice's
+    segmentation, serial and split over ``sp``: label volumes and tables
+    equal; the column kernel launched once a shard, and held to its plain
+    version on one shard's window. Returns (seconds, launches)."""
+    import numpy as np
+    import torch
+
+    from syconn_tpu_torch.extraction.cs_extraction import extract_contact_site_tables
+    from syconn_tpu_torch.io.chunked import ChunkedVolume
+    from syconn_tpu_torch.ops.contacts_cuda import (LAUNCHES, detect_cs_columns,
+                                                    detect_cs_columns_ref)
+    from syconn_tpu_torch.ops.contacts_torch import column_tables
+    from syconn_tpu_torch.parallel.device import get_device_mesh
+
+    shape = shape or SHARD_SHAPE
+    stencil = (13, 13, 7)
+    meshes = {"serial": get_device_mesh(axis_names=("sp",), devices=devs[:1]),
+              "sharded": get_device_mesh(axis_names=("sp",), devices=devs)}
+    secs, res, vols = {}, {}, {}
+    for mode, mesh in meshes.items():
+        out_dir = os.path.join(work, f"sharded_contacts_{mode}")
+        LAUNCHES["detect_cs_columns"] = 0
+        res[mode], secs[mode] = _timed_run(dev, lambda: extract_contact_site_tables(
+            os.path.join(work, "sv_seg"), out_dir, kd_sj_path=os.path.join(work, "sj"),
+            chunk_shape=SHARD_CHUNK, stencil=stencil, overwrite=True, device=dev, mesh=mesh))
+        launched = LAUNCHES["detect_cs_columns"]
+        st = res[mode]["stats"]
+        want = "sharded" if mode == "sharded" else "stream"
+        if st["path"] != want or st["host_chunks"] != 0:
+            raise AssertionError(f"sharded contacts {mode}: path {st['path']}, "
+                                 f"{st['host_chunks']} chunks on the host")
+        if torch.device(dev).type == "cuda" and not launched == st["dispatched"] > 0:
+            raise AssertionError(f"sharded contacts {mode}: kernel launched {launched} times "
+                                 f"for {st['dispatched']} dispatches")
+        if mode == "sharded":
+            launches = launched
+            n_slabs = st["slabs"]
+        vols[mode] = _load_labels(out_dir, shape)
+    for n in ("cs", "syn"):
+        if not vols["serial"][n].any() or not np.array_equal(vols["serial"][n], vols["sharded"][n]):
+            raise AssertionError(f"sharded contacts: {n}_seg empty or sharded != serial")
+        a, b = res["serial"][n], res["sharded"][n]
+        if not _same({k: v for k, v in a.items() if k != "voxels"},
+                     {k: v for k, v in b.items() if k != "voxels"}) or \
+                not all(np.array_equal(x, y) for x, y in zip(a.get("voxels", []),
+                                                             b.get("voxels", []))):
+            raise AssertionError(f"sharded contacts: the {n} table sharded != serial")
+    # the kernel on shard 0 of the first slab, against its plain version
+    h = np.array(stencil) // 2
+    win = ChunkedVolume.open(os.path.join(work, "sv_seg")).load_seg(
+        offset=-h, size=np.array(SHARD_CHUNK) + 2 * h)
+    seg_p, offs, cands, _ = column_tables(torch.from_numpy(win.astype(np.int32)).to(dev),
+                                          stencil, (32, 32), 32)
+    lo, hi = detect_cs_columns(seg_p, offs, cands, stencil, (32, 32))
+    rlo, rhi = detect_cs_columns_ref(seg_p, offs, cands, stencil, (32, 32))
+    err = max(int((lo - rlo).abs().max()), int((hi - rhi).abs().max()))
+    if err != 0:
+        raise AssertionError(f"sharded contacts: the column kernel differs from its plain "
+                             f"version on a shard window by {err}")
+    line = dict(n_cs=res["sharded"]["n_cs"], n_syn=res["sharded"]["n_syn"], slabs=n_slabs,
+                launches=launches, shard_window=list(win.shape), kernel_vs_plain=err,
+                serial_s=secs["serial"], sharded_s=secs["sharded"])
+    log("slice sharded contacts " + json.dumps(line))
+    return secs, launches
+
+
+def _sharded_dense(dev, work, devs, shape=None):
+    """(c) ``predict_dense_to_kd`` with the packaged syntype U-Net at the
+    deployment tile, batch 4 split over ``data``, against the serial run at
+    the replicas' batch (JAX's own test holds the split batch to per-tile
+    forwards): outputs equal; conv launches = dispatches x replicas x
+    launches a tile. Whether a serial run at batch 4 gives the same bytes is
+    reported. Returns (seconds, launches)."""
+    import numpy as np
+
+    from syconn_tpu_torch.inference.dense import predict_dense_to_kd
+    from syconn_tpu_torch.io.chunked import ChunkedVolume
+    from syconn_tpu_torch.models.io import load_model, packaged_model_path
+    from syconn_tpu_torch.ops.conv3d import LAUNCHES, reset_launch_counts
+    from syconn_tpu_torch.parallel.device import get_device_mesh
+
+    shape = shape or SHARD_SHAPE
+    model, params = load_model(packaged_model_path("syntype"))
+    chans = {"asym": 1, "sym": 2}
+    batch = 4
+    secs, outs, launches, dispatches = {}, {}, {}, {}
+    for mode, ds, b in (("serial", devs[:1], batch // len(devs)), ("sharded", devs, batch),
+                        ("serial_batch4", devs[:1], batch)):
+        mesh = get_device_mesh(axis_names=("data",), devices=ds)
+        targets = {k: os.path.join(work, f"sharded_{k}_{mode}") for k in chans}
+        reset_launch_counts()
+        st, secs[mode] = _timed_run(dev, lambda: predict_dense_to_kd(
+            os.path.join(work, "raw"), targets, model, params, chans, target_mags=(1,),
+            show_progress=False, batch_size=b, device=dev, mesh=mesh, **SHARD_TILE))
+        counts = {k: LAUNCHES[k] for k in REPLACES}
+        if st["route"] != "stream":
+            raise AssertionError(f"sharded dense {mode}: took the {st['route']} route")
+        for k, per in PER_TILE["syntype"].items():
+            want = st["dispatches"] * len(ds) * per
+            if dev.type == "cuda" and counts[k] != want:
+                raise AssertionError(f"sharded dense {mode}: {k} launched {counts[k]} times, "
+                                     f"expected {st['dispatches']} dispatches x {len(ds)} "
+                                     f"replicas x {per}")
+        launches[mode], dispatches[mode] = counts, st["dispatches"]
+        outs[mode] = {k: ChunkedVolume.open(p).load_raw(size=shape) for k, p in targets.items()}
+    for k in chans:
+        a, b = outs["serial"][k], outs["sharded"][k]
+        if int(a.max()) == int(a.min()) or not np.array_equal(a, b):
+            raise AssertionError(f"sharded dense: {k} constant or sharded != serial")
+    batch4 = {k: bool(np.array_equal(outs["serial_batch4"][k], outs["sharded"][k]))
+              for k in chans}
+    line = dict(launches=launches["sharded"], dispatches=dispatches, replicas=len(devs),
+                equal_to_serial_batch4=batch4, serial_s=secs["serial"],
+                sharded_s=secs["sharded"], serial_batch4_s=secs["serial_batch4"])
+    log("slice sharded dense " + json.dumps(line))
+    return {"serial": secs["serial"], "sharded": secs["sharded"]}, launches["sharded"]
+
+
+def _sharded_points(dev, devs):
+    """(d) ``ContextPredictor`` with the packaged compartment net at
+    ``SHARD_POINTS['npoints']``, split over ``data``: equal to the serial predictor at the
+    replicas' batch; the largest difference to one forward of the whole
+    batch is reported."""
+    import numpy as np
+
+    from syconn_tpu_torch.inference.points import ContextPredictor, extract_contexts
+    from syconn_tpu_torch.mesh.surface_nets import surface_net_mesh
+    from syconn_tpu_torch.models.io import load_model, load_model_meta, packaged_model_path
+    from syconn_tpu_torch.parallel.device import get_device_mesh
+
+    path = packaged_model_path(SHARD_POINTS["task"])
+    meta = load_model_meta(path)
+    npoints = SHARD_POINTS["npoints"]
+    model, _ = load_model(path)
+    _, verts, _ = surface_net_mesh(_blob_mask(), scale=(10, 10, 20))
+    verts = verts.reshape(-1, 3)
+    types = np.zeros(len(verts), np.int32)
+    types[np.random.default_rng(3).random(len(verts)) < 0.1] = 1
+    ctx, _ = extract_contexts(verts, types, ctx_size_nm=float(meta.get("ctx_nm", 4000.0)),
+                              npoints=npoints, n_contexts=SHARD_POINTS["contexts"],
+                              rng=np.random.default_rng(9))
+    batch = SHARD_POINTS["batch"]
+    mesh = get_device_mesh(axis_names=("data",), devices=devs)
+    out, secs = {}, {}
+    for mode, pred in (
+            ("sharded", ContextPredictor(model, npoints=npoints, batch=batch, device=dev,
+                                         mesh=mesh)),
+            ("replica_batch", ContextPredictor(model, npoints=npoints,
+                                               batch=batch // len(devs), device=dev)),
+            ("whole_batch", ContextPredictor(model, npoints=npoints, batch=batch, device=dev))):
+        pred.predict(ctx[:batch])  # warm-up
+        res, secs[mode] = _timed_run(dev, lambda: pred.predict(ctx))
+        out[mode] = res["logits"] if isinstance(res, dict) else res
+    if not np.array_equal(out["sharded"], out["replica_batch"]):
+        raise AssertionError("sharded points: the data-split forward != the serial forward at "
+                             "the replicas' batch")
+    whole = float(np.abs(out["sharded"] - out["whole_batch"]).max())
+    flips = float(np.mean(out["sharded"].argmax(-1) != out["whole_batch"].argmax(-1)))
+    line = dict(task=SHARD_POINTS["task"], npoints=npoints, contexts=len(ctx), batch=batch,
+                replicas=len(devs), max_abs_vs_whole_batch=whole, argmax_flips_vs_whole=flips,
+                serial_s=secs["whole_batch"], sharded_s=secs["sharded"],
+                replica_batch_s=secs["replica_batch"])
+    log("slice sharded points " + json.dumps(line))
+    return {"serial": secs["whole_batch"], "sharded": secs["sharded"]}
+
+
+def _sharded_training(dev, devs):
+    """(e) the organelles U-Net at its published width on the toy world of
+    ``slice training``: ``SHARD_TRAIN['steps']`` steps on a data x tp mesh
+    against the single-device steps from the same seed: losses within
+    ``loss_rtol``; parameters within ``param_median`` at the median and
+    2 x lr a step at most (AdamW normalises each gradient: a near-zero
+    gradient summed in another order can move its parameter the other
+    way)."""
+    import numpy as np
+    import torch
+
+    from syconn_tpu_torch.models import train as mtrain
+    from syconn_tpu_torch.models.unet3d import UNet3D, unet_variants
+    from syconn_tpu_torch.parallel.device import get_device_mesh
+    from syconn_tpu_torch.utils.testdata import generate_toy_world
+
+    world = generate_toy_world(**TRAIN_WORLD)
+    lab = np.zeros(world["raw"].shape, np.int32)
+    for c, co in enumerate(("mi", "vc", "sj"), start=1):
+        lab[world[co] > 0] = c
+    rng = np.random.default_rng(11)
+    tile, cfg = SHARD_TRAIN["tile"], SHARD_TRAIN
+    offs = [[int(rng.integers(0, s - t + 1)) for s, t in zip(world["raw"].shape, tile)]
+            for _ in range(cfg["batch"])]
+    x = np.stack([world["raw"][o[0]:o[0] + tile[0], o[1]:o[1] + tile[1], o[2]:o[2] + tile[2],
+                               None] for o in offs]).astype(np.float32)
+    y = np.stack([lab[o[0]:o[0] + tile[0], o[1]:o[1] + tile[1], o[2]:o[2] + tile[2]]
+                  for o in offs])
+    shape = (2, 2) if len(devs) >= 4 else (2, 1)
+    mesh = get_device_mesh(axis_names=("data", "tp"), mesh_shape=shape,
+                           devices=devs[:shape[0] * shape[1]])
+    loss_fn = mtrain.weighted_xent([0.2, 1.0, 1.0, 1.0])
+    states, losses, secs = {}, {"serial": [], "sharded": []}, {"serial": 0.0, "sharded": 0.0}
+    for mode in ("serial", "sharded"):
+        st = mtrain.make_train_state(UNet3D(**unet_variants("organelles")), None,
+                                     learning_rate=cfg["lr"], seed=1, device=dev)
+        step = (mtrain.make_train_step(loss_fn=loss_fn) if mode == "serial" else
+                mtrain.make_train_step(mesh, tensor_axis="tp", state_template=st,
+                                       loss_fn=loss_fn))
+        for _ in range(cfg["steps"]):
+            (st, m), dt = _timed_run(dev, lambda: step(st, x, y))
+            secs[mode] += dt
+            losses[mode].append(float(m["loss"]))
+        states[mode] = st
+    for a, b in zip(losses["serial"], losses["sharded"]):
+        if not (np.isfinite(b) and abs(b / a - 1) <= cfg["loss_rtol"]):
+            raise AssertionError(f"sharded training: losses {losses['sharded']} against "
+                                 f"{losses['serial']} (rtol {cfg['loss_rtol']})")
+    pa = dict(states["serial"].model.named_parameters())
+    pb = dict(states["sharded"].model.named_parameters())
+    diff = torch.cat([(pa[k].detach() - pb[k].detach()).abs().reshape(-1).cpu() for k in pa])
+    med, mx = float(diff.median()), float(diff.max())
+    if med > cfg["param_median"] or mx > 2 * cfg["lr"] * cfg["steps"]:
+        raise AssertionError(f"sharded training: parameters apart by median {med}, max {mx}")
+    n_shards = len(states["sharded"].placement.shards)
+    line = dict(mesh=dict(states["sharded"].placement.mesh.shape), tp_params=n_shards,
+                loss_serial=losses["serial"], loss_sharded=losses["sharded"],
+                param_median_abs=med, param_max_abs=mx, serial_s=secs["serial"],
+                sharded_s=secs["sharded"])
+    log("slice sharded training " + json.dumps(line))
+    return secs
+
+
+def _sharded_pipeline(dev, devs):
+    """(f) the GPipe trunk: stages at width ``SHARD_PIPE['width']`` on the
+    ``pp`` devices, forward against the serial composition (within
+    ``atol`` of the output's largest magnitude: a microbatch's products
+    have fewer rows than the whole batch's), and the loss falling over
+    ``steps`` SGD steps."""
+    import torch
+
+    from syconn_tpu_torch.parallel import pipeline as pp
+    from syconn_tpu_torch.parallel.device import get_device_mesh
+
+    cfg = SHARD_PIPE
+    mesh = get_device_mesh(axis_names=("pp",), devices=devs)
+    g = torch.Generator().manual_seed(0)
+    params = pp.init_stage_params(g, len(devs), cfg["width"])
+    x = torch.randn((cfg["microbatches"], cfg["rows"], cfg["width"]), generator=g).to(dev)
+    (out, dt) = _timed_run(dev, lambda: pp.pipeline_apply(params, x, mesh))
+    stages = [{k: v[s].to(devs[s]) for k, v in params.items()} for s in range(len(devs))]
+    ref = x
+    for s, p in enumerate(stages):
+        ref = pp._stage_fn(p, ref.to(devs[s]))
+    err = float((out - ref.to(out.device)).abs().max())
+    scale = float(ref.abs().max())
+    if err > cfg["atol"] * max(1.0, scale):
+        raise AssertionError(f"sharded pipeline: forward {err} apart from the serial "
+                             f"composition (scale {scale})")
+    step, place = pp.make_pipeline_train_step(mesh, lr=cfg["lr"])
+    st = place(params)
+    y = 0.5 * x + 0.1
+    losses = []
+    for _ in range(cfg["steps"]):
+        st, loss = step(st, x, y)
+        losses.append(float(loss))
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"sharded pipeline: the loss did not fall: {losses}")
+    log("slice sharded pipeline " + json.dumps(dict(
+        stages=len(devs), width=cfg["width"], microbatches=cfg["microbatches"],
+        rows=cfg["rows"], forward_max_abs=err, forward_scale=scale, forward_s=dt,
+        losses=losses)))
+
+
+def _sharded_driver(dev, work):
+    """(g) the driver's run B with ``--shard_pipeline``: the config says so,
+    ``timing.json`` has the same steps and volume, and every dataset and
+    the matrix equal those of run B without it."""
+    from syconn_tpu_torch import global_params
+    from syconn_tpu_torch.examples import start
+    from syconn_tpu_torch.handler.config import Config
+    from syconn_tpu_torch.reps.segmentation import SegmentationDataset
+    from syconn_tpu_torch.utils.quality_metrics import quality_pipeline_argv
+
+    ref_wd = os.path.join(work, "driver_B")
+    wd = os.path.join(work, "driver_B_sharded")
+    argv = quality_pipeline_argv(wd, QUALITY["seed"], QUALITY["shape"], QUALITY["n_cells"])
+    stats = {}
+    _, secs = _timed_run(dev, lambda: start.main(argv + ["--device", str(dev),
+                                                        "--shard_pipeline"], stats=stats))
+    if Config(wd)["tpu"]["shard_pipeline"] is not True:
+        raise AssertionError("driver --shard_pipeline: the config does not say so")
+    timing = {}
+    for w in (ref_wd, wd):
+        with open(os.path.join(w, "timing.json")) as f:
+            timing[w] = json.load(f)
+    a, b = timing[ref_wd], timing[wd]
+    head = [{k: v for k, v in t.items() if k != "steps_s"} for t in (a, b)]
+    if head[0] != head[1] or a["steps_s"].keys() != b["steps_s"].keys():
+        raise AssertionError(f"driver --shard_pipeline: timing.json differs: {a} / {b}")
+    types = ["sv", "mi", "vc", "cs", "syn", "syn_ssv"]
+    for t in types:
+        sa = _dataset_state(SegmentationDataset(t, working_dir=ref_wd))
+        sb = _dataset_state(SegmentationDataset(t, working_dir=wd))
+        if not _same(sa, sb):
+            raise AssertionError(f"driver --shard_pipeline: the {t} dataset differs")
+    mats = []
+    for w in (ref_wd, wd):
+        with open(os.path.join(w, "connectivity_matrix", "conn_mat.csv")) as f:
+            mats.append(f.read())
+    if mats[0] != mats[1] or not mats[0]:
+        raise AssertionError("driver --shard_pipeline: the connectivity matrix differs")
+    sds = stats["sds"]["stats"]
+    global_params.wd = None
+    log("slice sharded driver " + json.dumps(dict(
+        wall_s=secs, steps_s=b["steps_s"], datasets=types,
+        matrix_rows=len(mats[1].splitlines()) - 1,
+        scan_route=sds["scan"]["cell_route"],
+        extraction_routes={co: e["route"] for co, e in sds["extraction"].items() if e})))
+
+
+def phase_slice_sharded(dev, work: str) -> dict:
+    """Multi-device (``parallel/``, the ``mesh=`` forms): on a logical mesh
+    of ``SHARD_N`` positions on the card, and again on the real cards where
+    there are several, (a) step 2's object extraction and scans, (b) step
+    6a's contact tables, (c) dense prediction, (d) point inference, (e)
+    data x tensor-parallel training, (f) the GPipe pipeline, each against
+    its serial run; then (g) the driver's run B with ``--shard_pipeline``.
+    On one card logical shards run one after another: the seconds show the
+    overhead of splitting, never a speedup. Returns the kernels' launches
+    of the sharded runs of (b) and (c)."""
+    import torch
+
+    from syconn_tpu_torch.io import resident
+
+    resident.clear()
+    launches = {k: 0 for k in list(REPLACES) + ["detect_cs_columns"]}
+    for label, devs in _shard_meshes(dev):
+        t0 = time.perf_counter()
+        log(f"slice sharded mesh {label}: {len(devs)} positions on "
+            f"{sorted(set(str(d) for d in devs))}")
+        secs = {"step2": _sharded_step2(dev, work, devs)}
+        secs["contacts"], n_cs = _sharded_contacts(dev, work, devs)
+        secs["dense"], conv = _sharded_dense(dev, work, devs)
+        secs["points"] = _sharded_points(dev, devs)
+        secs["training"] = _sharded_training(dev, devs)
+        _sharded_pipeline(dev, devs)
+        launches["detect_cs_columns"] += n_cs
+        for k in REPLACES:
+            launches[k] += conv[k]
+        what = ("logical-shard overhead on one card" if label == "logical"
+                else f"{len(devs)} cards")
+        log(f"slice sharded seconds ({what}) " + json.dumps(
+            {k: {"serial_s": v["serial"], "sharded_s": v["sharded"],
+                 "ratio": v["sharded"] / max(v["serial"], 1e-9)} for k, v in secs.items()}))
+        log(f"slice sharded mesh {label} {time.perf_counter() - t0:.3f} s")
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+    _sharded_driver(dev, work)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3761,6 +4227,12 @@ def main() -> int:
         for k in REPLACES:
             launches[k] += analysis_launches[k]
         log(f"slice analysis phase {time.perf_counter() - t_analysis:.3f} s")
+        t_sharded = time.perf_counter()
+        sharded_launches = phase_slice_sharded(dev, work)
+        for k in REPLACES:
+            launches[k] += sharded_launches[k]
+        contacts["launches"] += sharded_launches["detect_cs_columns"]
+        log(f"slice sharded phase {time.perf_counter() - t_sharded:.3f} s")
     finally:
         resident.clear()
         shutil.rmtree(work, ignore_errors=True)

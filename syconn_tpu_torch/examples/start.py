@@ -14,8 +14,11 @@ Usage::
 
 Every flag of the JAX driver is kept, with its default and behaviour.
 ``--device`` (the card unless ``cpu``) replaces the JAX driver's link
-probe and is resolved before anything is written. ``--shard_pipeline``
-(multi-device, ROADMAP Queue 1 item 11) raises. ``--run_server`` serves the
+probe and is resolved before anything is written. ``--shard_pipeline`` /
+``--no-shard_pipeline`` write ``tpu.shard_pipeline`` into the config: the
+hot steps split over every attached card where several are (default on),
+and run serially on one card, as the JAX driver does on one device.
+``--run_server`` serves the
 finished working directory with ``analysis/server.py`` on port 10001 once
 ``timing.json`` is written, until interrupted. Departures from the JAX
 driver: trained models go to ``<wd>/models/`` (``DynConfig.model_target``),
@@ -40,8 +43,7 @@ __all__ = ["main", "parse_args"]
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    """The JAX driver's arguments and ``--device``. ``--shard_pipeline``
-    raises here, before any work."""
+    """The JAX driver's arguments and ``--device``."""
     parser = argparse.ArgumentParser(description="syconn_tpu_torch example run")
     parser.add_argument("--working_dir", type=str, default="")
     parser.add_argument("--shape", type=int, nargs=3, default=[256, 256, 128],
@@ -94,18 +96,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "the inference steps 7-9")
     parser.add_argument("--shard_pipeline", action=argparse.BooleanOptionalAction,
                         default=None,
-                        help="run the hot pipeline steps sharded over all "
-                             "attached devices: not ported (ROADMAP Queue 1 "
-                             "item 11); --no-shard_pipeline runs serially, "
-                             "as without the flag")
+                        help="run the hot pipeline steps sharded over ALL "
+                             "attached cards (object extraction, contact "
+                             "detection and property scans over an 'sp' mesh "
+                             "axis with halos copied between cards; dense and "
+                             "point inference batch-split over 'data'). "
+                             "Default: on whenever >1 card is attached; "
+                             "--no-shard_pipeline forces serial")
     parser.add_argument("--device", type=str, default=None,
                         help="cpu, or the CUDA card (default; required then)")
-    args = parser.parse_args(argv)
-    if args.shard_pipeline:
-        raise NotImplementedError(
-            "--shard_pipeline (the pipeline sharded over several devices) is ROADMAP Queue 1 "
-            "item 11 and is not ported yet")
-    return args
+    return parser.parse_args(argv)
 
 
 def _write_timing_json(wd, args, ftimer):
@@ -231,7 +231,8 @@ def main(argv=None, stats=None) -> None:
             }),
             ("skeleton", {"kimimaro_skelgen": {"dust_threshold": 200},
                           "kimimaro_merge": {"dust_threshold": 150, "tick_threshold": 300}}),
-        ] + ([("tpu", {"shard_pipeline": False})] if args.shard_pipeline is False else []),
+        ] + ([("tpu", {"shard_pipeline": bool(args.shard_pipeline)})]
+             if args.shard_pipeline is not None else []),
         force_overwrite=True,
     )
     _reset_process_state(wd)

@@ -34,6 +34,7 @@ from ..io.chunked import ChunkedVolume
 from ..ops.contacts import cs_pair_unpack, detect_cs, extract_cs_syntype
 from ..ops.morphology import get_aniso_struct, multi_mop_backgroundonly
 from ..parallel.executor import map_parallel
+from ..parallel.sharded import detect_cs_slab_sharded, mesh_from_config, slab_runs
 from ..reps.rep_helper import subfold_from_ix
 from ..reps.segmentation import SegmentationDataset
 from ..utils.device import default_device
@@ -65,16 +66,12 @@ def extract_contact_sites(
     used only where it exists), with ``cs_filtersize``, ``cs_dilation``, the
     sj probability threshold and ``min_obj_vx`` of ``cell_objects``; chunk
     ``tpu.chunk_shape`` by default. The resume cache lives under
-    ``<wd>/.stepcache``. ``mesh`` (a multi-device slab path in the JAX
-    package) is not ported. ``kernel``/``device``: see
+    ``<wd>/.stepcache``. ``mesh``, ``kernel``, ``device``: see
     :func:`extract_contact_site_tables`.
 
     Returns ``{"n_cs", "n_syn"}``, the objects written, and ``"stats"``: the
     detection's statistics with ``write_seconds``.
     """
-    if mesh is not None:
-        raise NotImplementedError("the sharded slab path needs multi-device support, which is "
-                                  "not ported yet (ROADMAP Queue 1, multi-device)")
     cfg = global_params.config
     if cfg.working_dir is None:
         raise ValueError("no working directory: set global_params.wd first")
@@ -94,7 +91,7 @@ def extract_contact_sites(
         min_obj_vx={"cs": int(co["min_obj_vx"].get("cs", 1)),
                     "syn": int(co["min_obj_vx"].get("syn", 1))},
         mag=mag, n_workers=n_workers, overwrite=overwrite, kernel=kernel, device=device,
-        cache_root=str(cfg.working_dir))
+        cache_root=str(cfg.working_dir), mesh=mesh)
     t0 = time.perf_counter()
     _write_partner_sd("cs", res["cs"], n_folders_fs, os.path.join(out_dir, "cs_seg"), n_workers)
     _write_partner_sd("syn", res["syn"], n_folders_fs, os.path.join(out_dir, "syn_seg"),
@@ -174,6 +171,7 @@ def extract_contact_site_tables(
     kernel: str = "auto",
     device=None,
     cache_root: Optional[str] = None,
+    mesh=None,
 ) -> Dict:
     """Extract contact sites and synapse fragments of a segmentation.
 
@@ -199,19 +197,29 @@ def extract_contact_site_tables(
         device: ``None`` means the CUDA card (required); ``"cpu"`` runs the
             plain versions.
         cache_root: holds the resume cache (default ``out_dir``).
+        mesh: a ``parallel.device.DeviceMesh`` with an ``sp`` axis (default:
+            ``parallel.sharded.mesh_from_config()``, None on one card).
 
-    Three detection paths: a segmentation held by ``io.resident`` is sliced
-    in device memory and read back sparsely; else chunks stream through the
-    pipelined ``CsDispatcher`` (loader threads prefetch, two dispatches in
-    flight, host threads post-process); chunks with ids of 2**31 and above
-    take the host kernel, and ids of 2**32 and above raise.
+    Four detection paths, in this order: with ``sp`` > 1 (and a kernel other
+    than ``"host"``) slabs of ``sp`` x-chunks are split over the mesh, the
+    stencil halo copied between devices
+    (``parallel.sharded.detect_cs_slab_sharded``); every chunk takes that
+    path (the last slab of a column zero-pads past the volume) but those
+    of a slab with ids of 2**31 and above, which go on to the next paths.
+    A segmentation held by ``io.resident`` is sliced in device memory and
+    read back sparsely; else chunks stream through the pipelined
+    ``CsDispatcher`` (loader threads prefetch, two dispatches in flight,
+    host threads post-process); chunks with ids of 2**31 and above take the
+    host kernel, and ids of 2**32 and above raise. A slab resumes from the
+    step cache when all of its chunks are there, else it is recomputed
+    whole.
 
     Returns ``{"n_cs", "n_syn", "cs": table, "syn": table, "stats"}``.
-    ``stats`` names the path taken and counts chunks (dispatched, resumed,
-    host-routed), columns and overflowing columns, and seconds: the whole
-    call, the main thread's share in detection (dispatch to fetch, of which
-    ``prep_seconds`` and ``finish_seconds`` are the host code around the
-    device work) and the thread-seconds of post-processing. A
+    ``stats`` names the path taken and counts chunks (dispatched: chunks
+    or, on the sharded path, shards; resumed, host-routed), slabs, columns
+    and overflowing columns, and seconds: the whole call, the main thread's
+    share in detection (dispatch to fetch, of which ``prep_seconds`` and
+    ``finish_seconds`` are the host code around the device work) and the thread-seconds of post-processing. A
     table holds, for the objects with at least ``min_obj_vx`` voxels, sorted
     by id: ``ids``, ``sizes``, ``rep_coords`` (n, 3), ``bounding_boxes``
     (n, 2, 3), ``partner_ids`` (n, 2); the syn table also ``asym_prop``,
@@ -220,6 +228,9 @@ def extract_contact_site_tables(
     device = default_device(device)
     if kernel not in ("auto", "cuda", "torch", "host"):
         raise ValueError(f"unknown cs kernel: {kernel!r}")
+    if mesh is None:
+        mesh = mesh_from_config(device=device)
+    n_sp = 0 if mesh is None or kernel == "host" else int(mesh.shape.get("sp", 1))
     if (kd_sym_path is None) != (kd_asym_path is None):
         raise ValueError("give both kd_sym_path and kd_asym_path, or neither")
     t_start = time.perf_counter()
@@ -248,7 +259,7 @@ def extract_contact_site_tables(
     cs_kd, syn_kd = create("cs_seg"), create("syn_seg")
     chunk_ixs = [(cx, cy, cz) for cx in range(grid[0]) for cy in range(grid[1])
                  for cz in range(grid[2])]
-    stats = {"path": None, "chunks": len(chunk_ixs), "resumed": 0, "dispatched": 0,
+    stats = {"path": None, "chunks": len(chunk_ixs), "resumed": 0, "slabs": 0, "dispatched": 0,
              "host_chunks": 0, "columns": 0, "overflow_columns": 0,
              "detect_seconds": 0.0, "prep_seconds": 0.0, "finish_seconds": 0.0,
              "post_seconds": 0.0}
@@ -312,28 +323,58 @@ def extract_contact_site_tables(
         cache.store(_ckey(cix), r)
         return r
 
-    def _timed(fn, *args):
+    def _timed(fn, *args, **kw):
         t0 = time.perf_counter()
-        out = fn(*args)
+        out = fn(*args, **kw)
         stats["detect_seconds"] += time.perf_counter() - t0
         return out
 
-    results = [cache.load(_ckey(c)) for c in chunk_ixs if cache.done(_ckey(c))]
-    chunk_ixs = [c for c in chunk_ixs if not cache.done(_ckey(c))]
-    stats["resumed"] = len(results)
-    if results:
-        log.info("resume: %d completed chunks loaded from the step cache", len(results))
-
-    # the segmentation already lives in device memory: windows are sliced
-    # there and contact voxels come back sparse — takes precedence over the
-    # upload dispatcher
-    res_seg = None
-    if chunk_ixs and mag == 1 and kernel != "host":
-        res_seg = resident.get(kd_seg_path, "seg", mag)
+    results = []
     poster = ThreadPoolExecutor(max_workers=n_workers or 8)
     post_futs = []
     inflight: deque = deque()
     try:
+        if n_sp > 1:
+            # padded slabs cover EVERY chunk (the last slab of a column
+            # zero-pads past the x boundary; out-of-range outputs dropped)
+            stats["path"] = "sharded"
+            slabs, _ = slab_runs((int(grid[0]), int(grid[1]), int(grid[2])), n_sp, pad=True)
+            chunk_ixs = []
+            for cx0, cy, cz in slabs:
+                in_range = [(cx0 + s, cy, cz) for s in range(n_sp) if cx0 + s < grid[0]]
+                if all(cache.done(_ckey(c)) for c in in_range):
+                    results += [cache.load(_ckey(c)) for c in in_range]
+                    stats["resumed"] += len(in_range)
+                    continue
+                off = np.array([cx0 * cs[0], cy * cs[1], cz * cs[2]], np.int64)
+                size = np.array([n_sp * cs[0], min(cs[1], sh[1] - off[1]),
+                                 min(cs[2], sh[2] - off[2])], np.int64)
+                seg = kd.load_seg(offset=off - halo, size=size + 2 * halo, mag=mag)
+                if seg.max(initial=0) >= 2**31:
+                    chunk_ixs += in_range  # ids beyond int32: the next paths
+                    continue
+                packed = _timed(detect_cs_slab_sharded, seg, mesh, stencil_t,
+                                kernel=kernel)
+                stats["slabs"] += 1
+                stats["dispatched"] += n_sp  # one kernel launch a shard
+                for s, cix in enumerate(in_range):
+                    sx = min(int(cs[0]), int(sh[0] - cix[0] * cs[0]))
+                    post_futs.append(poster.submit(_post_cached, cix,
+                                                   packed[s * cs[0]:s * cs[0] + sx]))
+        done = [c for c in chunk_ixs if cache.done(_ckey(c))]
+        results += [cache.load(_ckey(c)) for c in done]
+        stats["resumed"] += len(done)
+        chunk_ixs = [c for c in chunk_ixs if not cache.done(_ckey(c))]
+        if stats["resumed"]:
+            log.info("resume: %d completed chunks loaded from the step cache",
+                     stats["resumed"])
+
+        # the segmentation already lives in device memory: windows are
+        # sliced there and contact voxels come back sparse — takes
+        # precedence over the upload dispatcher
+        res_seg = None
+        if chunk_ixs and mag == 1 and kernel != "host":
+            res_seg = resident.get(kd_seg_path, "seg", mag)
         if res_seg is not None:
             from ..ops.contacts_torch import ResidentCsDetector
 
@@ -352,7 +393,6 @@ def extract_contact_site_tables(
                     _finish(inflight.popleft())
             while inflight:
                 _finish(inflight.popleft())
-            results += [f.result() for f in post_futs]
             stats["columns"] = det.n_columns
             stats["overflow_columns"] = det.n_overflow
         elif kernel == "host":
@@ -398,13 +438,13 @@ def extract_contact_site_tables(
                         _drain()
                 while inflight:
                     _drain()
-                results += [f.result() for f in post_futs]
             finally:
                 loader.shutdown()
             stats["columns"] = dispatcher.n_columns
             stats["overflow_columns"] = dispatcher.n_overflow
             stats["prep_seconds"] = dispatcher.prep_seconds
             stats["finish_seconds"] = dispatcher.finish_seconds
+        results += [f.result() for f in post_futs]
     finally:
         poster.shutdown()
     # chunk order, whatever order the chunks finished in or were resumed

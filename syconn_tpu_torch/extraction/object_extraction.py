@@ -12,9 +12,12 @@ Per organelle type:
      feed a union-find whose merge map compacts labels to 1..K;
   4. every chunk is read back, relabelled and written again.
 
-Three routes for step 1: a probability map held by ``io.resident`` is
-sliced on the device (:class:`..ops.morphology_torch.ResidentSegmenter`);
-else chunk windows stream from disk through the device chain
+Four routes for step 1: with a mesh of several ``sp`` positions, slabs of
+``sp`` x-chunks are split over the mesh
+(:func:`..parallel.sharded.segment_slab_sharded`); else a probability map
+held by ``io.resident`` is sliced on the device
+(:class:`..ops.morphology_torch.ResidentSegmenter`); else chunk windows
+stream from disk through the device chain
 (``use_device=True``, :func:`..ops.morphology_torch.segment_chunk_device`)
 or through scipy on the host (``use_device=False``). Connected components
 run on the device with the device chain and in scipy on the host route;
@@ -44,6 +47,7 @@ from ..ops.contacts import relabel_vol_nonexist2zero
 from ..ops.morphology import (apply_morphological_operations, gaussian_blur, get_aniso_struct,
                               morphology_halo)
 from ..ops.morphology_torch import ResidentSegmenter, _split_ops, segment_chunk_device
+from ..parallel.sharded import mesh_from_config, segment_slab_sharded, slab_runs
 from ..utils.device import default_device
 from ..utils.stepcache import StepCache, cached_map
 
@@ -122,9 +126,18 @@ def from_probabilities_to_kd(
     cache_root: Optional[str] = None,
     use_device: bool = True,
     device=None,
+    mesh=None,
 ) -> Dict:
     """Chunked extraction of one type from the 'raw' channel of
     ``src_kd_path`` into the 'seg' channel of ``target_kd_path``.
+
+    ``mesh``: a ``parallel.device.DeviceMesh`` with an ``sp`` axis (default:
+    ``parallel.sharded.mesh_from_config()``, None on one card). With
+    ``sp`` > 1 the chain of ``sp`` consecutive x-chunks runs as one slab
+    split over the mesh (``parallel.sharded.segment_slab_sharded``), the
+    interior halos copied between devices; every chunk takes that path
+    (the last slab of a column zero-pads past the volume), with outputs
+    equal to the serial path's.
 
     ``cache_root`` holds the step cache (default: the target's parent
     directory). With ``overwrite=False`` a crashed run resumes per chunk:
@@ -134,14 +147,16 @@ def from_probabilities_to_kd(
     entry point needs the card unless ``device="cpu"``, on every route.
 
     Returns ``n_objects``, ``n_chunks``, ``halo``, the ``route`` taken
-    (``"resident"``, ``"device"`` or ``"host"``) and seconds: ``seconds``
-    (the call), ``segment_seconds``, ``stitch_seconds`` and
+    (``"sharded"``, ``"resident"``, ``"device"`` or ``"host"``) and
+    seconds: ``seconds`` (the call), ``segment_seconds``, ``stitch_seconds`` and
     ``relabel_seconds`` (wall of steps 1-2, 3 and 4), and the thread-seconds
     of step 1-2's stages: ``load_seconds`` (disk reads), ``chain_seconds``
     (blur, threshold, morphology, readback), ``label_seconds`` (connected
     components and watershed), ``write_seconds`` (encode, faces, write).
     """
     device = default_device(device)
+    if mesh is None:
+        mesh = mesh_from_config(device=device)
     t_start = time.perf_counter()
     step_name = os.path.basename(os.path.normpath(target_kd_path))
     if cache_root is None:
@@ -188,12 +203,15 @@ def from_probabilities_to_kd(
 
     # a probability map held in device memory: windows are sliced on the
     # device and only 2-bit packed masks are read back
+    n_sp = 0 if mesh is None else int(mesh.shape.get("sp", 1))
+    sharded = n_sp > 1 and struct is not None
     res_segmenter = None
-    res_prob = resident.get(src_kd_path, "raw", mag) if mag == 1 else None
+    res_prob = resident.get(src_kd_path, "raw", mag) if mag == 1 and not sharded else None
     if res_prob is not None:
         res_segmenter = ResidentSegmenter(res_prob, tuple(int(c) for c in cs), int(halo),
                                           thresh_uint8, morph_ops, struct, sigma=sigma)
-    route = "resident" if res_segmenter is not None else ("device" if use_device else "host")
+    route = "sharded" if sharded else (
+        "resident" if res_segmenter is not None else ("device" if use_device else "host"))
     cc_device = device if use_device else False
 
     def work_segment(cix):
@@ -224,8 +242,55 @@ def from_probabilities_to_kd(
     faces: Dict[Tuple[int, int, int], List] = {}
     uniq_ids: List[np.ndarray] = []
     t_seg = time.perf_counter()
-    for cix, ids, face_list in cached_map(work_segment, chunk_ixs, seg_cache, key_fn=_ckey,
-                                          n_workers=n_workers):
+    serial_chunks = chunk_ixs
+    slab_results = []
+    if sharded:
+        # padded slabs cover EVERY chunk (the last slab zero-pads past the
+        # x boundary; out-of-range outputs are dropped): no serial remainder
+        slabs, _ = slab_runs((int(grid[0]), int(grid[1]), int(grid[2])), n_sp, pad=True)
+        serial_chunks = []
+
+        def work_slab(slab):
+            cx0, cy, cz = slab
+            chunks = [(cx0 + s, cy, cz) for s in range(n_sp) if cx0 + s < grid[0]]
+            if all(seg_cache.done(_ckey(c)) for c in chunks):
+                log.info("resume: slab %s (%d chunks) loaded from the step cache", slab,
+                         len(chunks))
+                return [seg_cache.load(_ckey(c)) for c in chunks]
+            t0 = time.perf_counter()
+            off = np.array([cx0 * cs[0], cy * cs[1], cz * cs[2]], np.int64)
+            size = np.array([n_sp * cs[0], min(cs[1], sh[1] - off[1]),
+                             min(cs[2], sh[2] - off[2])], np.int64)
+            prob = src.load_raw(offset=off - halo, size=size + 2 * halo, mag=mag)
+            t1 = time.perf_counter()
+            masks, eroded, n_tr = segment_slab_sharded(prob, thresh_uint8, morph_ops, struct,
+                                                       mesh, int(halo), sigma=sigma)
+            t2 = time.perf_counter()
+            out = []
+            t_label = 0.0
+            for s, cix in enumerate(chunks):
+                csize = np.array([min(int(cs[0]), int(sh[0] - cix[0] * cs[0])), size[1],
+                                  size[2]], np.int64)
+                ta = time.perf_counter()
+                lab = labels_from_masks(masks[s], eroded[s], n_tr, min_seed_vx,
+                                        device=cc_device)
+                t_label += time.perf_counter() - ta
+                r = finish_chunk(cix, lab, csize)
+                seg_cache.store(_ckey(cix), r)
+                out.append(r)
+            with stage_lock:
+                stage["load_seconds"] += t1 - t0
+                stage["chain_seconds"] += t2 - t1
+                stage["label_seconds"] += t_label
+                stage["write_seconds"] += time.perf_counter() - t2 - t_label
+            return out
+
+        # the slabs run one after another (each already spans the mesh)
+        for slab in slabs:
+            slab_results.extend(work_slab(slab))
+
+    for cix, ids, face_list in slab_results + cached_map(
+            work_segment, serial_chunks, seg_cache, key_fn=_ckey, n_workers=n_workers):
         uniq_ids.append(ids)
         faces[cix] = face_list
     t_stitch = time.perf_counter()

@@ -44,6 +44,8 @@ from ..io import resident
 from ..io.chunked import ChunkedVolume
 from ..models.convert import params_from_flax
 from ..models.unet_engine import engine_supported, unet_apply_packed
+from ..parallel.device import canonical_device, data_sharding, gather, on_device, place
+from ..parallel.sharded import mesh_from_config
 from ..utils.device import default_device
 
 log = logging.getLogger("syconn_tpu_torch.inference")
@@ -97,30 +99,47 @@ class DenseTilePredictor:
     ``model``/``params``: the port's :class:`UNet3D` and the flax params
     tree (as ``models.io.load_model`` returns them). ``device``: ``None``
     means the CUDA card (required); ``"cpu"`` runs the plain versions.
+
+    ``mesh``: a ``parallel.device.DeviceMesh`` with a ``data`` axis: each
+    batch splits over it, every data position runs its slice through the
+    engine on its own device (params converted once per distinct device)
+    and the outputs are gathered in mesh order on ``device``.
+    ``batch_size`` is rounded up to a multiple of the axis. Per-tile
+    arithmetic is unchanged, so the outputs equal the single-device path's.
     """
 
     def __init__(self, model, params, tile_shape: Sequence[int] = (256, 256, 128),
                  halo: Sequence[int] = (32, 32, 16), batch_size: int = 1,
                  mode: str = "probs", thresholds: Optional[Sequence[float]] = None,
-                 device=None):
+                 device=None, mesh=None):
         if not engine_supported(model):
             raise TypeError(f"the dense predictor runs UNet3D models, got {type(model).__name__}")
         if mode not in ("probs", "masks"):
             raise ValueError(f"unknown mode {mode!r}")
         self.device = default_device(device)
         self.model = model
+        self.mesh = mesh
         self.tile_shape = np.asarray(tile_shape, np.int64)
         self.halo = np.asarray(halo, np.int64)
-        self.batch_size = int(batch_size)
+        # the devices that run the forward: the data axis' positions, or
+        # the predictor's own device
+        home = canonical_device(self.device)
+        self._replicas = [home] if mesh is None else mesh.axis_devices("data")
+        n_data = len(self._replicas)
+        self.batch_size = _cdiv(int(batch_size), n_data) * n_data
         self.mode = mode
         self.patch = np.asarray(model.patch, np.int64)
         self._pvox = int(np.prod(self.patch))
-        self._params = params_from_flax(params, self.device)
         n_classes = model.n_classes
         if thresholds is None:
             thresholds = [0.5] * n_classes
-        self._thr = torch.tensor(np.asarray(thresholds, np.float32)[:, None],
-                                 device=self.device)  # (C, 1)
+        thr = torch.tensor(np.asarray(thresholds, np.float32)[:, None])  # (C, 1)
+        bits = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.uint8)
+        # engine params, thresholds and bit weights once per distinct device
+        self._on = {}
+        for d in dict.fromkeys(self._replicas + [home]):
+            self._on[d] = (params_from_flax(params, d), place(thr, d), place(bits, d))
+        self._home = home
         ts = tuple(int(t) for t in self.tile_shape)
         h = tuple(int(x) for x in self.halo)
         if not (np.all(self.tile_shape % self.patch == 0) and np.all(self.halo % self.patch == 0)):
@@ -129,8 +148,6 @@ class DenseTilePredictor:
         if (self._pvox * n_classes) % 8:
             raise ValueError("n_classes * patch voxels must be a multiple of 8")
         self._in_shape = (self.batch_size,) + tuple(np.add(ts, np.multiply(2, h)))
-        self._bit_weights = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.uint8,
-                                         device=self.device)
 
     @property
     def n_classes(self) -> int:
@@ -138,10 +155,24 @@ class DenseTilePredictor:
 
     @torch.no_grad()
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, X, Y, Z) uint8 on the device -> packed patched output."""
+        """x (B, X, Y, Z) uint8 on the device -> packed patched output. With
+        a mesh, B splits over the data axis and the replicas' outputs are
+        gathered in mesh order on the predictor's device."""
+        if self.mesh is None:
+            return self._forward_on(x, *self._on[self._home])
+        outs = []
+        for xs in data_sharding(x, self.mesh, "data"):
+            with on_device(xs.device):
+                outs.append(self._forward_on(xs, *self._on[xs.device]))
+        return gather(outs, self.device)
+
+    def _forward_on(self, x: torch.Tensor, params: dict, thr: torch.Tensor,
+                    bit_weights: torch.Tensor) -> torch.Tensor:
+        """One device's forward; ``params``, ``thr``, ``bit_weights`` on x's
+        device."""
         tsp = self.tile_shape // self.patch
         hp = self.halo // self.patch
-        lg = unet_apply_packed(self.model, self._params, x[..., None])
+        lg = unet_apply_packed(self.model, params, x[..., None])
         lg = lg[:, hp[0]:hp[0] + tsp[0], hp[1]:hp[1] + tsp[1], hp[2]:hp[2] + tsp[2], :]
         b, sx, sy, sz, _ = lg.shape
         C = self.n_classes
@@ -149,8 +180,8 @@ class DenseTilePredictor:
         if self.mode == "probs":
             out = torch.round(probs * 255.0).to(torch.uint8)
             return out.reshape(b, sx, sy, sz, C * self._pvox)
-        fg = (probs >= self._thr).reshape(b, sx, sy, sz, C * self._pvox // 8, 8)
-        return (fg.to(torch.uint8) * self._bit_weights).sum(-1, dtype=torch.uint8)
+        fg = (probs >= thr).reshape(b, sx, sy, sz, C * self._pvox // 8, 8)
+        return (fg.to(torch.uint8) * bit_weights).sum(-1, dtype=torch.uint8)
 
     # ------------------------------------------------------------- pipeline
     def dispatch(self, x: np.ndarray):
@@ -230,15 +261,18 @@ class ResidentDensePredictor(DenseTilePredictor):
     from the padded device tensor and ``tile_batch`` tiles go through the
     engine as one batch. The packed outputs stay on the device.
 
-    On a device OOM the tile batch halves, down to 1. Environment override:
-    ``SYCONN_TORCH_RESIDENT_TILE_BATCH``. ``n_forward`` counts the batches
-    run.
+    On a device OOM the tile batch halves, down to 1 (with a mesh: to the
+    data axis' size). Environment override:
+    ``SYCONN_TORCH_RESIDENT_TILE_BATCH``. With a mesh the tile batch is
+    rounded up to a multiple of the data axis, and each batch splits over
+    it. ``n_forward`` counts the batches run.
     """
 
     def __init__(self, *a, tile_batch: int = 4, **kw):
         super().__init__(*a, **kw)
         tb = os.environ.get("SYCONN_TORCH_RESIDENT_TILE_BATCH")
-        self.tile_batch = max(int(tb) if tb else int(tile_batch), 1)
+        n_data = len(self._replicas)
+        self.tile_batch = _cdiv(max(int(tb) if tb else int(tile_batch), 1), n_data) * n_data
         self.n_forward = 0
 
     @torch.no_grad()
@@ -248,7 +282,8 @@ class ResidentDensePredictor(DenseTilePredictor):
         offs = [(gx * ts[0], gy * ts[1], gz * ts[2]) for gx in range(grid[0])
                 for gy in range(grid[1]) for gz in range(grid[2])]
         n_tiles = len(offs)
-        k = max(min(k, n_tiles), 1)
+        n_data = len(self._replicas)
+        k = max(min(k, _cdiv(n_tiles, n_data) * n_data), n_data)
         # pad the offset list to a multiple of k with the last offset:
         # recomputed, then dropped from the output
         offs += [offs[-1]] * ((-n_tiles) % k)
@@ -281,9 +316,10 @@ class ResidentDensePredictor(DenseTilePredictor):
                     torch.cuda.synchronize(self.device)  # surface an OOM here
                 return out, grid
             except RuntimeError as e:
-                if tb <= 1 or not _is_oom(e):
+                n_data = len(self._replicas)
+                if tb <= n_data or not _is_oom(e):
                     raise
-                tb = max(tb // 2, 1)
+                tb = max(tb // 2 // n_data * n_data, n_data)
                 self.tile_batch = tb
                 torch.cuda.empty_cache()
                 log.warning("resident tile batch OOM; retrying with tile_batch=%d", tb)
@@ -327,6 +363,7 @@ def predict_dense_to_kd(
     predictor: Optional[DenseTilePredictor] = None,
     batch_size: int = 1,
     device=None,
+    mesh=None,
 ) -> dict:
     """Predict a whole chunked volume and write per-class outputs.
 
@@ -337,6 +374,11 @@ def predict_dense_to_kd(
         seg_path: optional argmax label volume output (probs mode only).
         mode/thresholds: see :class:`DenseTilePredictor`.
         device: ``None`` = the CUDA card; ``"cpu"`` for the plain versions.
+        mesh: a device mesh with a ``data`` axis the batches split over
+            (see :class:`DenseTilePredictor`); without ``predictor`` and a
+            resident source it defaults to
+            ``parallel.sharded.mesh_from_config(axis_name="data")`` (None on
+            one card).
 
     A source whose 'raw' channel at ``mag`` is held by ``io.resident`` runs
     through :class:`ResidentDensePredictor` when no ``predictor`` is given
@@ -348,6 +390,8 @@ def predict_dense_to_kd(
     """
     src = ChunkedVolume.open(kd_path)
     res_src = resident.get(kd_path, "raw", mag) if predictor is None else None
+    if mesh is None and predictor is None and res_src is None:
+        mesh = mesh_from_config(axis_name="data", device=default_device(device))
     n_dispatch = 0
     if predictor is not None:
         pred = predictor
@@ -357,7 +401,8 @@ def predict_dense_to_kd(
         pred_cls = ResidentDensePredictor if res_src is not None else DenseTilePredictor
         while True:
             pred = pred_cls(model, params, tile_shape=tile_shape, halo=halo, mode=mode,
-                            thresholds=thresholds, batch_size=batch_size, device=device)
+                            thresholds=thresholds, batch_size=batch_size, device=device,
+                            mesh=mesh)
             try:
                 warm = np.zeros((pred.batch_size,) + pred._in_shape[1:], np.uint8)
                 n_dispatch += 1
@@ -533,12 +578,13 @@ def _predict_resident(pred, src, res_src, targets, seg_kd, target_paths, channel
                 raise
             log.warning("resident forward OOM; retrying with tile %s halo %s", *shrunk)
             n_forward += pred.n_forward
-            device = pred.device
+            device, mesh = pred.device, pred.mesh
             del pred
             torch.cuda.empty_cache()
             pred = ResidentDensePredictor(model, params, tile_shape=shrunk[0], halo=shrunk[1],
                                           mode=mode, thresholds=thresholds,
-                                          batch_size=batch_size, device=device)
+                                          batch_size=batch_size, device=device,
+                                          mesh=mesh)
     ts = pred.tile_shape
     registered = []
     if mag == 1 and res_src is not None and len(packed_parts) == 1:

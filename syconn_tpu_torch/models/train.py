@@ -19,27 +19,42 @@ and products are PyTorch's, as JAX's are XLA's) and a
   one (optax's ``scale_by_schedule``), and each group's ``lr`` is set from
   it before every ``optimizer.step()``.
 
-Labels ``-1`` are ignored by the losses and by ``acc``. The multi-device
-forms (``mesh``, ``tensor_axis``, ``state_shardings``) are ROADMAP Queue 1
-item 11 and raise here.
+Labels ``-1`` are ignored by the losses and by ``acc``.
+
+Multi-device steps (``mesh=``) keep one process, as the JAX package's one
+jitted GSPMD step does, and equal the single-device step up to float
+summation order:
+
+* *data axis*: the batch splits over the ``data`` positions, each with a
+  whole replica of the model on its device; each replica's loss numerator
+  is divided by the weight summed over all replicas (the global weighted
+  mean) and its gradients are summed onto the first replica in mesh order;
+  the clip and the AdamW update run once and the parameters are copied
+  back to the other replicas;
+* *tensor axis* (``tensor_axis`` and ``state_template``): the parameters
+  :func:`state_shardings` picks live as ``tp`` shards, with their AdamW
+  moments, on the ``tp`` devices; they are gathered for the forward, each
+  gradient shard goes back to its owner, the global norm spans all shards
+  and the update runs shard by shard;
+* a spatial axis (``sp`` > 1) is ROADMAP Queue 1 item 18 (a spatially
+  partitioned U-Net, halos inside every convolution) and raises.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterator, Optional, Tuple
+import copy
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..parallel.device import gather, on_device, place
 from ..utils.device import DeviceLike, default_device
 
 __all__ = ["TrainState", "make_train_state", "make_train_step", "make_class_train_step",
            "make_triplet_train_step", "train_dense", "softmax_xent_loss", "weighted_xent",
            "triplet_loss", "warmup_cosine_decay_schedule", "clip_by_global_norm_",
-           "state_shardings"]
-
-_MULTI_DEVICE = ("multi-device training (mesh, tensor-parallel layouts) is ROADMAP Queue 1 "
-                 "item 11 and is not ported yet")
+           "state_shardings", "xent_parts"]
 
 
 def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_steps: int,
@@ -67,12 +82,19 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_st
 def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
     """``optax.clip_by_global_norm`` in place: ``g -> (g / n) * max_norm``
     for every gradient when the global norm ``n`` is not below
-    ``max_norm``. Returns ``n`` (a device scalar: no host synchronisation)."""
+    ``max_norm``. Returns ``n`` (a device scalar on the first gradient's
+    device: no host synchronisation). Gradients may lie on several devices
+    (shards): their squared sums meet on the first one."""
     grads = [g for g in grads if g is not None]
-    norm = torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
+    home = grads[0].device
+    norm = torch.sqrt(sum(place((g.float() * g.float()).sum(), home) for g in grads))
     keep = norm < max_norm
+    on = {home: (keep, norm)}
     for g in grads:
-        g.copy_(torch.where(keep, g, (g / norm) * max_norm))
+        if g.device not in on:
+            on[g.device] = (place(keep, g.device), place(norm, g.device))
+        k, n = on[g.device]
+        g.copy_(torch.where(k, g, (g / n) * max_norm))
     return norm
 
 
@@ -93,6 +115,8 @@ class TrainState:
         self.optimizer = torch.optim.AdamW(list(model.parameters()), lr=schedule(0),
                                            betas=(0.9, 0.999), eps=1e-8,
                                            weight_decay=weight_decay)
+        # set by the first multi-device step (:class:`_MeshPlacement`)
+        self.placement = None
 
     @property
     def device(self) -> torch.device:
@@ -144,20 +168,36 @@ def make_train_state(model, example_shape: Tuple[int, ...], learning_rate: float
     return TrainState(model, lr, weight_decay=weight_decay, clip_norm=1.0)
 
 
+def xent_parts(logits: torch.Tensor, labels: torch.Tensor,
+               class_weights: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of weighted losses, sum of weights) of :func:`softmax_xent_loss`;
+    ``logits=None`` gives (None, sum of weights), which depends on the
+    labels only. A data-parallel step divides each replica's numerator by
+    the weights summed over all replicas."""
+    valid = labels >= 0
+    safe = labels.clamp_min(0).long()
+    w = valid.to(torch.float32)
+    if class_weights is not None:
+        w = w * class_weights.to(labels.device)[safe]
+    if logits is None:
+        return None, w.sum()
+    logits = logits.float()
+    z = logits - logits.detach().amax(-1, keepdim=True)
+    losses = torch.log(torch.exp(z).sum(-1)) - z.gather(-1, safe[..., None])[..., 0]
+    return (losses * w).sum(), w.sum()
+
+
 def softmax_xent_loss(logits: torch.Tensor, labels: torch.Tensor,
                       class_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean softmax cross entropy with integer labels; label -1 = ignore.
     ``class_weights`` re-weights each loss by its label's weight; the
     denominator is ``max(sum(w), 1e-6)``."""
-    logits = logits.float()
-    valid = labels >= 0
-    safe = labels.clamp_min(0).long()
-    z = logits - logits.detach().amax(-1, keepdim=True)
-    losses = torch.log(torch.exp(z).sum(-1)) - z.gather(-1, safe[..., None])[..., 0]
-    w = valid.to(losses.dtype)
-    if class_weights is not None:
-        w = w * class_weights.to(losses.device)[safe]
-    return (losses * w).sum() / torch.clamp(w.sum(), min=1e-6)
+    num, den = xent_parts(logits, labels, class_weights)
+    return num / torch.clamp(den, min=1e-6)
+
+
+softmax_xent_loss.parts = xent_parts
 
 
 def weighted_xent(class_weights) -> Callable:
@@ -166,11 +206,112 @@ def weighted_xent(class_weights) -> Callable:
     def loss(logits, labels):
         return softmax_xent_loss(logits, labels, class_weights=cw)
 
+    loss.parts = lambda logits, labels: xent_parts(logits, labels, class_weights=cw)
     return loss
 
 
-def state_shardings(state, mesh, tensor_axis: str = "tp"):
-    raise NotImplementedError(_MULTI_DEVICE)
+def state_shardings(state, mesh, tensor_axis: str = "tp") -> Dict[str, Optional[Tuple[int, str]]]:
+    """The JAX package's tensor-parallel layout in the port's terms: per
+    parameter name, ``(dim, tensor_axis)`` where it splits into ``tp`` shards
+    over ``tensor_axis``, else None (replicated). JAX's rule: a leaf with
+    ndim >= 2 whose flax output-feature (last) dim divides by ``tp`` and is
+    at least ``2 * tp``; a kernel's flax last dim is dim 0 of the port's
+    ``weight`` (``models/convert.py``), any other leaf keeps its dims. The
+    AdamW moments follow their parameter. ``state``: a :class:`TrainState`
+    or a module."""
+    model = state.model if isinstance(state, TrainState) else state
+    tp = int(mesh.shape.get(tensor_axis, 1))
+    out = {}
+    for name, p in model.named_parameters():
+        dim = 0 if name.endswith(".weight") else p.ndim - 1
+        split = tp > 1 and p.ndim >= 2 and p.shape[dim] % tp == 0 and p.shape[dim] >= 2 * tp
+        out[name] = (dim, tensor_axis) if split else None
+    return out
+
+
+class _MeshPlacement:
+    """Where a :class:`TrainState` lives on a mesh: one model replica per
+    distinct ``data`` device (the state's own model on the first), the
+    parameters of ``layout`` as shards on the ``tp`` devices, and an AdamW
+    over the first replica's other parameters and those shards, carrying
+    the state's moments over."""
+
+    def __init__(self, state: TrainState, mesh, data_axis: str, tensor_axis: Optional[str],
+                 layout: Optional[Dict[str, Optional[Tuple[int, str]]]]):
+        self.mesh = mesh
+        self.data_devs = (mesh.axis_devices(data_axis) if data_axis in mesh.axis_names
+                          else [mesh.devices.reshape(-1)[0]])
+        self.home = self.data_devs[0]
+        if state.device != self.home:
+            raise ValueError(f"the state lives on {state.device}; the mesh's first data device "
+                             f"is {self.home}")
+        self.replicas = {self.home: state.model}
+        for d in self.data_devs:
+            if d not in self.replicas:
+                self.replicas[d] = copy.deepcopy(state.model).to(d)
+        self.params = dict(state.model.named_parameters())
+        self.layout = {k: v for k, v in (layout or {}).items() if v is not None}
+        owners = mesh.axis_devices(tensor_axis) if self.layout else []
+        old = state.optimizer
+        self.shards: Dict[str, List[torch.nn.Parameter]] = {}
+        opt_params = []
+        moved = {}
+        for name, p in self.params.items():
+            if name not in self.layout:
+                opt_params.append(p)
+                if p in old.state:
+                    moved[p] = old.state[p]
+                continue
+            dim = self.layout[name][0]
+            pieces = [torch.nn.Parameter(place(t.detach(), d).clone())
+                      for t, d in zip(torch.chunk(p.detach(), len(owners), dim), owners)]
+            self.shards[name] = pieces
+            opt_params += pieces
+            st = old.state.get(p, {})
+            for k, piece in enumerate(pieces):
+                if st:  # moments sliced like the parameter, the step count copied
+                    moved[piece] = {
+                        key: (v if not torch.is_tensor(v) else v.clone() if v.dim() == 0
+                              else place(torch.chunk(v, len(owners), dim)[k], piece.device).clone())
+                        for key, v in st.items()}
+        group = old.param_groups[0]
+        self.optimizer = torch.optim.AdamW(
+            opt_params, **{k: group[k] for k in ("lr", "betas", "eps", "weight_decay",
+                                                 "amsgrad", "maximize") if k in group})
+        for q, st in moved.items():
+            self.optimizer.state[q] = st
+        state.optimizer = self.optimizer
+
+    def apply(self, state: TrainState, grads: Dict[str, torch.Tensor]) -> None:
+        """Gradients (summed, on the first replica's device) -> shards and
+        replicated parameters, clip over all of them, one AdamW step, then
+        the full parameters back into every replica."""
+        for name, g in grads.items():
+            if name in self.shards:
+                pieces = self.shards[name]
+                for piece, gs in zip(pieces, torch.chunk(g, len(pieces), self.layout[name][0])):
+                    piece.grad = place(gs, piece.device).contiguous()
+            else:
+                self.params[name].grad = g
+        opt_params = [q for grp in self.optimizer.param_groups for q in grp["params"]]
+        if state.clip_norm is not None:
+            clip_by_global_norm_([q.grad for q in opt_params], state.clip_norm)
+        lr = state.schedule(state.step)
+        for grp in self.optimizer.param_groups:
+            grp["lr"] = lr
+        self.optimizer.step()
+        self.optimizer.zero_grad(set_to_none=True)
+        for p in self.params.values():
+            p.grad = None
+        state.step += 1
+        with torch.no_grad():
+            for name, pieces in self.shards.items():
+                self.params[name].copy_(gather(pieces, self.home, self.layout[name][0]))
+            for d, replica in self.replicas.items():
+                if d == self.home:
+                    continue
+                for name, q in replica.named_parameters():
+                    q.copy_(place(self.params[name], d))
 
 
 def _input(state: TrainState, x) -> torch.Tensor:
@@ -189,14 +330,84 @@ def _acc(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return hits.float() / valid.sum().clamp_min(1).float()
 
 
+def _mesh_step(mesh, data_axis: str, tensor_axis: Optional[str], layout, loss_fn: Callable,
+               logits_of: Callable):
+    """The multi-device step: per data shard (mesh order) the replica's
+    forward, the numerator of ``loss_fn.parts`` over the weights summed
+    across all shards, and its gradients, summed onto the first replica;
+    then :meth:`_MeshPlacement.apply`."""
+    parts = getattr(loss_fn, "parts", None)
+    if parts is None:
+        raise ValueError("a multi-device step needs a loss with .parts (numerator, "
+                         "denominator), as softmax_xent_loss and weighted_xent have")
+
+    def step(state: TrainState, x, y):
+        if state.placement is None:
+            state.placement = _MeshPlacement(state, mesh, data_axis, tensor_axis, layout)
+        pl = state.placement
+        if pl.mesh is not mesh:
+            raise ValueError("this state was placed on another mesh")
+        x = torch.as_tensor(np.asarray(x, np.float32) if isinstance(x, np.ndarray) else x,
+                            dtype=torch.float32)
+        y = torch.as_tensor(np.asarray(y) if isinstance(y, np.ndarray) else y).to(torch.int64)
+        n = len(pl.data_devs)
+        xs = torch.chunk(x, n) if n > 1 else [x]
+        ys = torch.chunk(y, n) if n > 1 else [y]
+        if len(xs) != n or x.shape[0] % n:
+            raise ValueError(f"batch {x.shape[0]} must divide over {n} data shards")
+        # the global denominator first: the weights depend on the labels only
+        den = torch.clamp(sum(parts(None, ys_)[1] for ys_ in ys), min=1e-6)
+        total: Dict[str, torch.Tensor] = {}
+        loss_sum = hits = valid = None
+        for d, xs_, ys_ in zip(pl.data_devs, xs, ys):
+            replica = pl.replicas[d]
+            replica.train()
+            named = list(replica.named_parameters())
+            with on_device(d):
+                xd, yd = place(xs_, d), place(ys_, d)
+                logits = logits_of(replica(xd))
+                loss = parts(logits, yd)[0] / place(den, d)
+                gs = torch.autograd.grad(loss, [q for _, q in named])
+            for (k, _), g in zip(named, gs):
+                g = place(g, pl.home)
+                total[k] = g if k not in total else total[k] + g
+            m = yd >= 0
+            h = place(((logits.detach().argmax(-1) == yd) & m).sum(), pl.home)
+            v = place(m.sum(), pl.home)
+            ld = place(loss.detach(), pl.home)
+            loss_sum = ld if loss_sum is None else loss_sum + ld
+            hits = h if hits is None else hits + h
+            valid = v if valid is None else valid + v
+        pl.apply(state, total)
+        return state, {"loss": loss_sum, "acc": hits.float() / valid.clamp_min(1).float()}
+
+    return step
+
+
 def make_train_step(mesh=None, data_axis: str = "data", spatial_axis: Optional[str] = "sp",
                     tensor_axis: Optional[str] = None, loss_fn: Callable = softmax_xent_loss,
                     state_template=None):
     """``step(state, x, y) -> (state, {"loss", "acc"})``: forward, loss,
     backward and one optimizer update (the state is updated in place and
-    returned). Metrics stay device scalars."""
-    if mesh is not None or tensor_axis is not None:
-        raise NotImplementedError(_MULTI_DEVICE)
+    returned). Metrics stay device scalars.
+
+    With a ``mesh`` (``parallel.device.DeviceMesh``): the batch splits over
+    ``data_axis``; with ``tensor_axis`` in the mesh and a
+    ``state_template`` (a :class:`TrainState` or module, for
+    :func:`state_shardings`), the chosen parameters split over it. The
+    first step places the state on the mesh (see the module docstring); the
+    state must live on the mesh's first data device. A ``spatial_axis``
+    larger than 1 raises (ROADMAP Queue 1 item 18)."""
+    if mesh is not None:
+        if spatial_axis and int(mesh.shape.get(spatial_axis, 1)) > 1:
+            raise NotImplementedError(
+                f"training with a spatial mesh axis ({spatial_axis!r} > 1: a spatially "
+                "partitioned U-Net with halos inside every convolution) is ROADMAP Queue 1 "
+                "item 18 and is not ported yet")
+        layout = None
+        if tensor_axis and tensor_axis in mesh.axis_names and state_template is not None:
+            layout = state_shardings(state_template, mesh, tensor_axis)
+        return _mesh_step(mesh, data_axis, tensor_axis, layout, loss_fn, lambda out: out)
 
     def step(state: TrainState, x, y):
         x, y = _input(state, x), _labels(state, y)
@@ -212,9 +423,12 @@ def make_train_step(mesh=None, data_axis: str = "data", spatial_axis: Optional[s
 
 def make_class_train_step(mesh=None, dict_output: bool = False):
     """Classification step; ``dict_output`` for models that return a dict
-    with a ``"logits"`` entry (``PointClassNet``)."""
+    with a ``"logits"`` entry (``PointClassNet``). With a ``mesh`` the batch
+    splits over its ``data`` axis, parameters replicated (see
+    :func:`make_train_step`)."""
     if mesh is not None:
-        raise NotImplementedError(_MULTI_DEVICE)
+        return _mesh_step(mesh, "data", None, None, softmax_xent_loss,
+                          (lambda out: out["logits"]) if dict_output else (lambda out: out))
 
     def step(state: TrainState, x, y):
         x, y = _input(state, x), _labels(state, y)
@@ -262,7 +476,8 @@ def train_dense(model, data_iter: Iterator[Tuple[np.ndarray, np.ndarray]], n_ste
                 log_every: int = 50, state: Optional[TrainState] = None, log=None,
                 device: DeviceLike = None):
     """Train on an iterator of (x, y) batches; returns (state, history of
-    (step, loss, acc) every ``log_every`` steps and at the last)."""
+    (step, loss, acc) every ``log_every`` steps and at the last). ``mesh``:
+    see :func:`make_train_step`."""
     if state is None:
         state = make_train_state(model, example_shape, learning_rate, device=device)
     step_fn = make_train_step(mesh)

@@ -12,9 +12,10 @@ reductions (``ops.props.merge_prop_arrays``);
 numpy caches, :func:`_write_type`).
 
 The cell segmentation is scanned on the device when ``io.resident`` holds
-it (:class:`..ops.props_torch.ResidentPropsScanner`), else on the host; the
-organelle segmentations, the overlap counts and the meshes are computed on
-the host, as in the JAX package.
+it (:class:`..ops.props_torch.ResidentPropsScanner`); with a device mesh
+of several ``sp`` positions the scans and overlap counts of each chunk run
+split along x over the mesh (``parallel/sharded.py``); else they run on
+the host. The meshes are computed on the host, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from ..io import resident
 from ..io.chunked import ChunkedVolume
 from ..ops.props import merge_prop_arrays, object_properties_arrays, pair_counts
 from ..ops.props_torch import ResidentPropsScanner
+from ..parallel.sharded import mesh_from_config, object_properties_sharded, pair_counts_sharded
 from ..parallel.executor import map_parallel
 from ..reps.rep_helper import subfold_from_ix
 from ..reps.segmentation import SegmentationDataset
@@ -63,11 +65,20 @@ def map_subcell_extract_props_tables(
     device=None,
     mesh_downsampling: Optional[Dict[str, Sequence[int]]] = None,
     generate_sv_meshes: bool = True,
+    device_mesh=None,
 ) -> Dict:
     """Property tables of the cell segmentation ('sv') and every organelle
     type, and the organelle -> cell overlap counts, in one volume scan.
     With ``mesh_downsampling`` (type -> stride) each chunk's objects are
     meshed too (the cells' only if ``generate_sv_meshes``).
+
+    ``device_mesh``: a ``parallel.device.DeviceMesh`` with an ``sp`` axis
+    (default: ``parallel.sharded.mesh_from_config()``, None on one card).
+    With ``sp`` > 1 each chunk's property scans and overlap counts run
+    x-split over the mesh (``parallel.sharded.object_properties_sharded``,
+    ``pair_counts_sharded``) where the chunk's x extent divides and its ids
+    fit int32, else on the host; a cell segmentation held by
+    ``io.resident`` is scanned from there first.
 
     ``min_obj_vx``: type -> smallest object kept (default 1). ``cache_root``
     holds the per-chunk resume cache (default: the segmentation's parent
@@ -80,12 +91,15 @@ def map_subcell_extract_props_tables(
     (organelle -> {organelle id: {cell id: voxels}}), ``sc_sizes``
     (organelle -> {id: size}, before the size filter: the denominators of
     the cells' reverse mapping ratios), ``counts`` (type -> objects kept)
-    and ``stats``: the cell scan's ``cell_route`` (``"resident"`` or
-    ``"host"``), ``chunks``, ``resumed``, ``seconds`` (the call) and the
+    and ``stats``: the cell scan's ``cell_route`` (``"resident"``,
+    ``"sharded"`` or ``"host"``), ``chunks``, ``resumed``, ``seconds`` (the call) and the
     thread-seconds of ``load_seconds``, ``cell_scan_seconds``,
     ``organelle_scan_seconds`` and ``pair_seconds``.
     """
-    default_device(device)
+    device = default_device(device)
+    if device_mesh is None:
+        device_mesh = mesh_from_config(device=device)
+    n_sp = 0 if device_mesh is None else int(device_mesh.shape.get("sp", 1))
     t_start = time.perf_counter()
     kd = ChunkedVolume.open(kd_seg_path)
     sh = kd.mag_shape(mag)
@@ -108,6 +122,23 @@ def map_subcell_extract_props_tables(
     if res_cell is not None:
         res_scanner = ResidentPropsScanner(res_cell, chunk=tuple(int(c) for c in cs))
 
+    def _props(vol):
+        if n_sp > 1 and vol.shape[0] % n_sp == 0 and vol.max(initial=0) < 2**31:
+            try:
+                return object_properties_sharded(vol, device_mesh)
+            except ValueError:  # a shard the device scan refuses -> host scan
+                pass
+        return object_properties_arrays(vol)
+
+    def _pairs(sc, cell):
+        if n_sp > 1 and sc.shape[0] % n_sp == 0 and \
+                max(sc.max(initial=0), cell.max(initial=0)) < 2**31:
+            try:
+                return pair_counts_sharded(sc, cell, device_mesh)
+            except ValueError:
+                pass
+        return pair_counts(sc, cell)
+
     def work_chunk(cix):
         off = np.array(cix) * cs
         size = np.minimum(cs, sh - off)
@@ -115,8 +146,7 @@ def map_subcell_extract_props_tables(
         cell = kd.load_seg(offset=off, size=size, mag=mag)
         t1 = time.perf_counter()
         res = {"off": off, "pairs": {}, "sc": {}}
-        res["sv"] = res_scanner.props(cix) if res_scanner is not None \
-            else object_properties_arrays(cell)
+        res["sv"] = res_scanner.props(cix) if res_scanner is not None else _props(cell)
         t2 = time.perf_counter()
         t_load = t_scan = t_pair = t_mesh = 0.0
         meshes = {}
@@ -128,9 +158,9 @@ def map_subcell_extract_props_tables(
             ta = time.perf_counter()
             sc = kd_orgs[co].load_seg(offset=off, size=size, mag=mag)
             tb = time.perf_counter()
-            res["sc"][co] = object_properties_arrays(sc)
+            res["sc"][co] = _props(sc)
             tc = time.perf_counter()
-            res["pairs"][co] = pair_counts(sc, cell)
+            res["pairs"][co] = _pairs(sc, cell)
             td = time.perf_counter()
             if mesh_downsampling is not None:
                 meshes[co] = find_meshes(sc, off, scale,
@@ -184,7 +214,8 @@ def map_subcell_extract_props_tables(
         tables[t] = (ids[keep], rep[keep], bb[keep], sz[keep])
         counts[t] = int(keep.sum())
     cache.mark_complete()
-    stats = {"cell_route": "resident" if res_scanner is not None else "host",
+    stats = {"cell_route": "resident" if res_scanner is not None else (
+                 "sharded" if n_sp > 1 else "host"),
              "chunks": len(chunk_ixs), "resumed": n_resumed,
              "seconds": time.perf_counter() - t_start, **stage}
     log.info("SD property scan done: %s", counts)
@@ -213,6 +244,7 @@ def map_subcell_extract_props(
     generate_sv_meshes: bool = True,
     mag: int = 1,
     mesh_downsampling: Optional[Dict[str, Sequence[int]]] = None,
+    device_mesh=None,
     overwrite: bool = True,
     device=None,
 ) -> Dict:
@@ -223,6 +255,7 @@ def map_subcell_extract_props(
     ``min_obj_vx`` default to the config's values; the resume cache lives
     under ``<wd>/.stepcache``. ``device``: None means the CUDA card
     (required), ``"cpu"`` runs the device scan's ops on the CPU.
+    ``device_mesh``: see :func:`map_subcell_extract_props_tables`.
 
     Returns type -> objects written, and ``"stats"``: the scan's statistics
     with ``write_seconds`` (the write phase's wall).
@@ -239,7 +272,8 @@ def map_subcell_extract_props(
         kd_seg_path, kd_organelle_paths, chunk_shape=chunk_shape,
         min_obj_vx=cfg["cell_objects"]["min_obj_vx"], n_workers=n_workers, mag=mag,
         cache_root=cfg.working_dir, overwrite=overwrite, device=device,
-        mesh_downsampling=mesh_downsampling, generate_sv_meshes=generate_sv_meshes)
+        mesh_downsampling=mesh_downsampling, generate_sv_meshes=generate_sv_meshes,
+        device_mesh=device_mesh)
     t0 = time.perf_counter()
     counts = {}
     for t in ["sv"] + organelles:

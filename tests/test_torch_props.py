@@ -129,15 +129,25 @@ def _world(cfg):
 
 @pytest.mark.parametrize("cell_resident", [False, True])
 def test_scan_tables_match_jax_datasets(tmp_path, working_dir, cell_resident):
+    from _torch_helpers import jax_defaults_isolated, port_wd
     from syconn_tpu import global_params
     from syconn_tpu.handler.basics import clear_kd_cache
+    from syconn_tpu.handler.config import generate_default_conf as jconf
     from syconn_tpu.proc.sd_proc import map_subcell_extract_props
     from syconn_tpu.reps.segmentation import SegmentationDataset
     from syconn_tpu_torch import global_params as tparams
+    from syconn_tpu_torch.handler.config import generate_default_conf
     from syconn_tpu_torch.io import resident
     from syconn_tpu_torch.io.chunked import ChunkedVolume
     from syconn_tpu_torch.proc.sd_proc import map_subcell_extract_props_tables
 
+    # both packages run their serial scans
+    serial = [("tpu", {"shard_pipeline": False})]
+    with jax_defaults_isolated():
+        jconf(working_dir, scaling=(10, 10, 20), key_value_pairs=serial, force_overwrite=True)
+    global_params.config._parse_config()
+    twd = str(tmp_path / "port_wd")
+    generate_default_conf(twd, scaling=(10, 10, 20), key_value_pairs=serial)
     clear_kd_cache()
     cfg = global_params.config
     sh, vols = _world(cfg)
@@ -153,9 +163,10 @@ def test_scan_tables_match_jax_datasets(tmp_path, working_dir, cell_resident):
     try:
         if cell_resident:
             assert resident.put(paths["sv"], "seg", vols["sv"], device="cpu")
-        res = map_subcell_extract_props_tables(
-            paths["sv"], {"mi": paths["mi"], "vc": paths["vc"]}, chunk_shape=(32, 32, 32),
-            min_obj_vx=tparams.config["cell_objects"]["min_obj_vx"], device="cpu")
+        with port_wd(twd):
+            res = map_subcell_extract_props_tables(
+                paths["sv"], {"mi": paths["mi"], "vc": paths["vc"]}, chunk_shape=(32, 32, 32),
+                min_obj_vx=tparams.config["cell_objects"]["min_obj_vx"], device="cpu")
     finally:
         resident.clear()
     assert res["stats"]["cell_route"] == ("resident" if cell_resident else "host")

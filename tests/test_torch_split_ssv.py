@@ -38,11 +38,12 @@ def jax_ssd_wd(tmp_path_factory):
     with jax_defaults_isolated():
         generate_default_conf(
             wd, scaling=(10, 10, 20),
-            key_value_pairs=[("min_cc_size_ssv", 200), ("cell_objects", {
-                "extract_morph_op": {"mi": ["binary_closing"], "vc": ["binary_closing"],
-                                     "sj": []},
-                "min_obj_vx": {"mi": 100, "vc": 50, "sj": 20},
-                "sizethresholds": {"mi": 100, "vc": 50, "sj": 20}})],
+            key_value_pairs=[("tpu", {"shard_pipeline": False}), ("min_cc_size_ssv", 200), (
+                "cell_objects", {
+                    "extract_morph_op": {"mi": ["binary_closing"], "vc": ["binary_closing"],
+                                         "sj": []},
+                    "min_obj_vx": {"mi": 100, "vc": 50, "sj": 20},
+                    "sizethresholds": {"mi": 100, "vc": 50, "sj": 20}})],
             force_overwrite=True)
         try:
             global_params.wd = wd

@@ -14,8 +14,9 @@ driver):
   the prepared working directory, and ``timing.json`` keeps the steps of
   both runs; a run of another shape starts the file afresh;
 * ``--kv`` values read as ``yaml.safe_load`` reads them;
-* ``--shard_pipeline`` and a run without a card and without
-  ``--device cpu`` raise before anything is written;
+* ``--shard_pipeline`` on one device writes ``tpu.shard_pipeline: true``
+  and runs serially; a run without a card and without ``--device cpu``
+  raises before anything is written;
 * ``--run_server`` calls the port's server ``main`` with the JAX driver's
   arguments once ``timing.json`` is written.
 """
@@ -171,11 +172,23 @@ def test_kv_values_read_as_yaml_safe_load(raw):
 
 
 def test_refusals_before_anything_is_written(tmp_path, monkeypatch):
+    """``--shard_pipeline`` writes ``tpu.shard_pipeline: true`` and, with no
+    second card (here: ``--device cpu``), runs serially, as the JAX driver
+    does on one device; a run without a card and without ``--device cpu``
+    raises before anything is written."""
     from syconn_tpu_torch.examples import start
+    from syconn_tpu_torch.handler.config import Config
 
+    sharded = str(tmp_path / "sharded")
+    stats = {}
+    _run(sharded, "--shard_pipeline", "--until_step", "2", stats=stats)
+    assert Config(sharded)["tpu"]["shard_pipeline"] is True
+    sds = stats["sds"]["stats"]
+    assert sds["scan"]["cell_route"] == "host"
+    assert {r["route"] for r in sds["extraction"].values() if r} == {"device"}
+    _run(str(tmp_path / "serial"), "--no-shard_pipeline", "--until_step", "0")
+    assert Config(str(tmp_path / "serial"))["tpu"]["shard_pipeline"] is False
     wd = str(tmp_path / "wd")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        start.main(["--working_dir", wd, *BASE, "--device", "cpu", "--shard_pipeline"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         start.main(["--working_dir", wd, *BASE])

@@ -26,7 +26,8 @@ from _torch_helpers import _same, compare_datasets, jax_defaults_isolated, port_
 SH = (96, 64, 48)
 CHUNK = (64, 64, 64)
 CONF = [("min_cc_size_ssv", 200), ("syntype_avail", True), ("process_cell_organelles", []),
-        ("cell_objects", {"min_obj_vx": {"syn_ssv": 10, "cs": 10, "syn": 10}})]
+        ("cell_objects", {"min_obj_vx": {"syn_ssv": 10, "cs": 10, "syn": 10}}),
+        ("tpu", {"shard_pipeline": False})]  # both packages run their serial steps
 
 
 @pytest.fixture(autouse=True)

@@ -173,12 +173,19 @@ def test_losses_ignore_label_and_weights():
 
 
 def test_multi_device_forms_raise():
-    for call in (lambda: T.make_train_step(mesh=object()),
-                 lambda: T.make_train_step(tensor_axis="tp"),
-                 lambda: T.make_class_train_step(mesh=object()),
-                 lambda: T.state_shardings(None, None)):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            call()
+    """Only a spatial mesh axis larger than 1 raises (spatially partitioned
+    training); the data and tensor forms run
+    (tests/test_torch_parallel.py)."""
+    from syconn_tpu_torch.parallel.device import get_device_mesh
+
+    cpu = [torch.device("cpu")] * 4
+    for shape in ((2, 2), (1, 4)):
+        mesh = get_device_mesh(axis_names=("data", "sp"), mesh_shape=shape, devices=cpu)
+        with pytest.raises(NotImplementedError, match="item 18"):
+            T.make_train_step(mesh)
+    mesh = get_device_mesh(axis_names=("data", "sp"), mesh_shape=(4, 1), devices=cpu)
+    assert callable(T.make_train_step(mesh)) and callable(T.make_class_train_step(mesh))
+    assert callable(T.make_train_step(mesh, spatial_axis=None))
 
 
 # --------------------------------------------------------------- step parity

@@ -51,7 +51,8 @@ jax = pytest.importorskip("jax")
 NET_ATOL = {"logits": 2e-2, "certainty": 1e-2, "embedding": 1e-2, "glia": 1e-2}
 VERTEX_AGREEMENT = {"view_world": 1.0, "fine_windows": 0.99}
 
-_CONF = [("min_cc_size_ssv", 200), ("use_point_models", False), ("process_cell_organelles", []),
+_CONF = [("tpu", {"shard_pipeline": False}),  # both packages run their serial steps
+         ("min_cc_size_ssv", 200), ("use_point_models", False), ("process_cell_organelles", []),
          ("skeleton", {"kimimaro_skelgen": {"dust_threshold": 100},
                        "kimimaro_merge": {"dust_threshold": 100, "tick_threshold": 200}})]
 WORLDS = {
