@@ -123,8 +123,12 @@ Phases, each failing the run on error:
      contact tables (the column kernel once a shard, and against its plain
      version on one shard's window), ``predict_dense_to_kd`` with the
      syntype U-Net over a ``data`` axis, the compartment point net over
-     ``data``, three organelles U-Net training steps on a data x tp mesh and
-     the GPipe pipeline at width 1024, each against its serial run; then
+     ``data``, three organelles U-Net training steps on a data x tp mesh,
+     the GPipe pipeline at width 1024 and spatially partitioned training
+     (the organelles U-Net's z split over ``sp``, halos in every conv, on
+     data x sp, sp and data x sp x tp meshes; its forward alone; the
+     sp-trained net deployed through the conv kernels; peak bytes per card
+     of a step at the deployment tile), each against its serial run; then
      the driver's run B with ``--shard_pipeline`` against run B. On one card
      the logical shards run one after another: their seconds are overhead.
 
@@ -3670,6 +3674,14 @@ SHARD_POINTS = dict(task="compartment_pts", npoints=2048, contexts=32, batch=16)
 SHARD_TRAIN = dict(steps=3, batch=4, tile=(64, 64, 32), lr=1e-3, loss_rtol=1e-4,
                    param_median=1e-5)
 SHARD_PIPE = dict(width=1024, microbatches=8, rows=64, steps=5, lr=1e-4, atol=1e-5)
+# (h): meshes as (axes, shape) over the first positions of the phase's mesh;
+# the forward alone within fwd_max_rel of the logits' largest magnitude
+# (bf16 activations: a few 2^-8 ulps where cuDNN's algorithms for the
+# shards' shapes round differently) and with ORG_BUDGET's stable argmax
+SHARD_SPATIAL = dict(meshes=[(("data", "sp"), (2, 2)), (("sp",), (4,)),
+                             (("data", "sp", "tp"), (1, 2, 2))],
+                     fwd_max_rel=2e-2, deploy_tile=(64, 64, 32), deploy_halo=(16, 16, 8),
+                     memory_tile=(256, 256, 128), memory_sp=4)
 
 
 def _sync(dev):
@@ -3924,6 +3936,28 @@ def _sharded_points(dev, devs):
     return {"serial": secs["whole_batch"], "sharded": secs["sharded"]}
 
 
+def _shard_train_batch():
+    """``SHARD_TRAIN``'s batch from the toy world of ``slice training``:
+    (x, labels mi/vc/sj = 1/2/3, the world's raw)."""
+    import numpy as np
+
+    from syconn_tpu_torch.utils.testdata import generate_toy_world
+
+    world = generate_toy_world(**TRAIN_WORLD)
+    lab = np.zeros(world["raw"].shape, np.int32)
+    for c, co in enumerate(("mi", "vc", "sj"), start=1):
+        lab[world[co] > 0] = c
+    rng = np.random.default_rng(11)
+    tile = SHARD_TRAIN["tile"]
+    offs = [[int(rng.integers(0, s - t + 1)) for s, t in zip(world["raw"].shape, tile)]
+            for _ in range(SHARD_TRAIN["batch"])]
+    x = np.stack([world["raw"][o[0]:o[0] + tile[0], o[1]:o[1] + tile[1], o[2]:o[2] + tile[2],
+                               None] for o in offs]).astype(np.float32)
+    y = np.stack([lab[o[0]:o[0] + tile[0], o[1]:o[1] + tile[1], o[2]:o[2] + tile[2]]
+                  for o in offs])
+    return x, y, world["raw"]
+
+
 def _sharded_training(dev, devs):
     """(e) the organelles U-Net at its published width on the toy world of
     ``slice training``: ``SHARD_TRAIN['steps']`` steps on a data x tp mesh
@@ -3938,20 +3972,9 @@ def _sharded_training(dev, devs):
     from syconn_tpu_torch.models import train as mtrain
     from syconn_tpu_torch.models.unet3d import UNet3D, unet_variants
     from syconn_tpu_torch.parallel.device import get_device_mesh
-    from syconn_tpu_torch.utils.testdata import generate_toy_world
 
-    world = generate_toy_world(**TRAIN_WORLD)
-    lab = np.zeros(world["raw"].shape, np.int32)
-    for c, co in enumerate(("mi", "vc", "sj"), start=1):
-        lab[world[co] > 0] = c
-    rng = np.random.default_rng(11)
-    tile, cfg = SHARD_TRAIN["tile"], SHARD_TRAIN
-    offs = [[int(rng.integers(0, s - t + 1)) for s, t in zip(world["raw"].shape, tile)]
-            for _ in range(cfg["batch"])]
-    x = np.stack([world["raw"][o[0]:o[0] + tile[0], o[1]:o[1] + tile[1], o[2]:o[2] + tile[2],
-                               None] for o in offs]).astype(np.float32)
-    y = np.stack([lab[o[0]:o[0] + tile[0], o[1]:o[1] + tile[1], o[2]:o[2] + tile[2]]
-                  for o in offs])
+    cfg = SHARD_TRAIN
+    x, y, _ = _shard_train_batch()
     shape = (2, 2) if len(devs) >= 4 else (2, 1)
     mesh = get_device_mesh(axis_names=("data", "tp"), mesh_shape=shape,
                            devices=devs[:shape[0] * shape[1]])
@@ -3985,6 +4008,184 @@ def _sharded_training(dev, devs):
                 sharded_s=secs["sharded"])
     log("slice sharded training " + json.dumps(line))
     return secs
+
+
+def _peak_bytes(devs, reset: bool = False):
+    """Peak bytes allocated per distinct card since the last reset (None on
+    the CPU); ``reset`` starts a new peak."""
+    import torch
+
+    from syconn_tpu_torch.parallel.device import canonical_device
+
+    out = {}
+    for d in dict.fromkeys(map(canonical_device, devs)):
+        if d.type != "cuda":
+            return None
+        torch.cuda.synchronize(d)
+        if reset:
+            torch.cuda.reset_peak_memory_stats(d)
+        else:
+            out[str(d)] = int(torch.cuda.max_memory_allocated(d))
+    return out
+
+
+def _params_apart(a, b) -> tuple:
+    import torch
+
+    pa, pb = dict(a.model.named_parameters()), dict(b.model.named_parameters())
+    diff = torch.cat([(pa[k].detach() - pb[k].detach()).abs().reshape(-1).cpu() for k in pa])
+    return float(diff.median()), float(diff.max())
+
+
+def _sharded_spatial(dev, devs):
+    """(h) spatially partitioned training (``parallel/spatial.py``): the
+    organelles U-Net at its published width on ``SHARD_TRAIN``'s batch, 4
+    of (64, 64, 32), ``SHARD_TRAIN['steps']`` steps on each mesh of
+    ``SHARD_SPATIAL`` (data x sp 2 x 2; sp 4, one voxel a shard at the
+    deepest level; data x sp x tp 1 x 2 x 2) against the single-device
+    steps from the same seed under ``SHARD_TRAIN``'s gates; the sharded
+    forward alone against the unsharded one; the sp-4-trained parameters
+    deployed through the conv kernels (``DenseTilePredictor``) on one tile
+    against the plain forward (``ORG_BUDGET``); and one step at
+    ``memory_tile``, batch 1, over ``memory_sp`` positions against one
+    card: peak bytes per card. Returns (seconds per mesh, conv launches of
+    the deployment)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from syconn_tpu_torch.inference.dense import DenseTilePredictor
+    from syconn_tpu_torch.models import train as mtrain
+    from syconn_tpu_torch.models.unet3d import UNet3D, unet_variants
+    from syconn_tpu_torch.ops.conv3d import LAUNCHES, reset_launch_counts
+    from syconn_tpu_torch.parallel import spatial
+    from syconn_tpu_torch.parallel.device import canonical_device, get_device_mesh
+
+    t_line = time.perf_counter()
+    cfg, sc = SHARD_TRAIN, SHARD_SPATIAL
+    x, y, raw = _shard_train_batch()
+    loss_fn = mtrain.weighted_xent([0.2, 1.0, 1.0, 1.0])
+
+    def state():
+        return mtrain.make_train_state(UNet3D(**unet_variants("organelles")), None,
+                                       learning_rate=cfg["lr"], seed=1, device=dev)
+
+    def run(st, step, xb, yb, n_steps):
+        losses, secs = [], []
+        for _ in range(n_steps):
+            (st, m), dt = _timed_run(dev, lambda: step(st, xb, yb))
+            losses.append(float(m["loss"]))
+            secs.append(dt)
+        return st, losses, secs
+
+    def gate(what, losses, ref_losses, a=None, b=None):
+        for lo, lr_ in zip(losses, ref_losses):
+            if not (np.isfinite(lo) and abs(lo / lr_ - 1) <= cfg["loss_rtol"]):
+                raise AssertionError(f"spatial training {what}: losses {losses} against "
+                                     f"{ref_losses} (rtol {cfg['loss_rtol']})")
+        if a is None:
+            return None, None
+        med, mx = _params_apart(a, b)
+        if med > cfg["param_median"] or mx > 2 * cfg["lr"] * len(losses):
+            raise AssertionError(f"spatial training {what}: parameters apart by median {med}, "
+                                 f"max {mx}")
+        return med, mx
+
+    _peak_bytes([dev], reset=True)
+    serial, serial_losses, serial_secs = run(state(), mtrain.make_train_step(loss_fn=loss_fn),
+                                             x, y, cfg["steps"])
+    serial_peak = _peak_bytes([dev])
+    secs, meshes, trained = {}, [], None
+    for axes, shape in sc["meshes"]:
+        ds = devs[:int(np.prod(shape))]
+        mesh = get_device_mesh(axis_names=axes, mesh_shape=shape, devices=ds)
+        st = state()
+        step = mtrain.make_train_step(mesh, tensor_axis="tp" if "tp" in axes else None,
+                                      state_template=st, loss_fn=loss_fn)
+        _peak_bytes(ds, reset=True)
+        st, losses, ssecs = run(st, step, x, y, cfg["steps"])
+        peak = _peak_bytes(ds)
+        sp = dict(zip(axes, shape))["sp"]
+        if [len(r) for r in st.placement.positions] != [sp] * dict(zip(axes, shape)).get("data", 1):
+            raise AssertionError(f"spatial training {shape}: placed {st.placement.positions}")
+        label = "x".join(str(v) for v in shape)
+        med, mx = gate(label, losses, serial_losses, serial, st)
+        meshes.append(dict(mesh=dict(zip(axes, shape)), loss_sharded=losses,
+                           param_median_abs=med, param_max_abs=mx, step_s=ssecs,
+                           peak_bytes=peak, tp_params=len(st.placement.shards)))
+        secs[f"spatial {label}"] = {"serial": sum(serial_secs), "sharded": sum(ssecs)}
+        if sp == 4 and "data" not in axes:
+            trained = st
+
+    # the forward alone: sp 4 on the initial parameters
+    model = state().model.eval()
+    ds = devs[:4]
+    home = canonical_device(dev)
+    reps = {d: model if d == home else copy.deepcopy(model).to(d)
+            for d in map(canonical_device, ds)}
+    reps = [reps[canonical_device(d)] for d in ds]
+    with torch.no_grad():
+        xt = torch.from_numpy(x).to(dev)
+        ref = model(xt).float()
+        parts = spatial.split_z(xt, 4, spatial.z_unit(model))
+        got = torch.cat([o.to(dev) for o in spatial.unet_forward(
+            reps, [p.to(d) for p, d in zip(parts, ds)])], dim=3).float()
+    scale = float(ref.abs().max())
+    fwd = dict(max_abs=float((got - ref).abs().max()), scale=scale,
+               equal=bool(torch.equal(got, ref)),
+               argmax_stable=float((got.argmax(-1) == ref.argmax(-1)).float().mean()))
+    if (fwd["max_abs"] > sc["fwd_max_rel"] * scale
+            or fwd["argmax_stable"] < ORG_BUDGET["argmax_stable"]):
+        raise AssertionError(f"spatial forward against the unsharded one: {fwd}")
+    del reps
+
+    # deployment of the sp-trained parameters through the conv kernels
+    params = trained.params
+    tile, halo = sc["deploy_tile"], sc["deploy_halo"]
+    vol = raw[:tile[0], :tile[1], :tile[2]]
+    dmodel = UNet3D(**unet_variants("organelles"))
+    reset_launch_counts()
+    card = DenseTilePredictor(dmodel, params, tile_shape=tile, halo=halo, mode="probs",
+                              device=dev).predict_array(vol)
+    _sync(dev)
+    launches = {k: LAUNCHES[k] for k in REPLACES}
+    if torch.device(dev).type == "cuda":
+        for k, per in _per_tile(dmodel).items():
+            if launches[k] != per:
+                raise AssertionError(f"spatial deployment: {k} launched {launches[k]} times, "
+                                     f"expected 1 tile x {per}")
+    plain = DenseTilePredictor(dmodel, params, tile_shape=tile, halo=halo, mode="probs",
+                               device="cpu").predict_array(vol)
+    budget = _probs_budget(card, plain, "spatial deployment")
+
+    # peak bytes per card at the deployment tile, batch 1
+    mt, msp = sc["memory_tile"], sc["memory_sp"]
+    rng = np.random.default_rng(12)
+    xm = rng.integers(0, 256, (1,) + tuple(mt) + (1,)).astype(np.float32)
+    ym = rng.integers(0, 4, (1,) + tuple(mt)).astype(np.int64)
+    memory = {}
+    for mode in ("serial", "sharded"):
+        ds = [dev] if mode == "serial" else devs[:msp]
+        st = state()
+        step = (mtrain.make_train_step(loss_fn=loss_fn) if mode == "serial" else
+                mtrain.make_train_step(get_device_mesh(axis_names=("sp",), devices=ds),
+                                       loss_fn=loss_fn))
+        _peak_bytes(ds, reset=True)
+        st, losses, msecs = run(st, step, xm, ym, 1)
+        memory[mode] = dict(peak_bytes=_peak_bytes(ds), loss=losses, step_s=msecs[0])
+        del st
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+    gate("memory tile", memory["sharded"]["loss"], memory["serial"]["loss"])
+    line = dict(loss_serial=serial_losses, serial_step_s=serial_secs, serial_peak_bytes=serial_peak,
+                meshes=meshes, forward_sp4=fwd, deploy=dict(tile=list(tile), halo=list(halo),
+                                                           launches=launches,
+                                                           card_vs_plain=budget),
+                memory=dict(tile=list(mt), sp=msp, **memory),
+                line_s=time.perf_counter() - t_line)
+    log("slice sharded spatial " + json.dumps(line))
+    return secs, launches
 
 
 def _sharded_pipeline(dev, devs):
@@ -4080,11 +4281,12 @@ def phase_slice_sharded(dev, work: str) -> dict:
     of ``SHARD_N`` positions on the card, and again on the real cards where
     there are several, (a) step 2's object extraction and scans, (b) step
     6a's contact tables, (c) dense prediction, (d) point inference, (e)
-    data x tensor-parallel training, (f) the GPipe pipeline, each against
-    its serial run; then (g) the driver's run B with ``--shard_pipeline``.
+    data x tensor-parallel training, (f) the GPipe pipeline, (h)
+    spatially partitioned training and its deployment, each against its
+    serial run; then (g) the driver's run B with ``--shard_pipeline``.
     On one card logical shards run one after another: the seconds show the
     overhead of splitting, never a speedup. Returns the kernels' launches
-    of the sharded runs of (b) and (c)."""
+    of the sharded runs of (b) and (c) and of (h)'s deployment."""
     import torch
 
     from syconn_tpu_torch.io import resident
@@ -4101,9 +4303,11 @@ def phase_slice_sharded(dev, work: str) -> dict:
         secs["points"] = _sharded_points(dev, devs)
         secs["training"] = _sharded_training(dev, devs)
         _sharded_pipeline(dev, devs)
+        spatial_secs, spatial_conv = _sharded_spatial(dev, devs)
+        secs.update(spatial_secs)
         launches["detect_cs_columns"] += n_cs
         for k in REPLACES:
-            launches[k] += conv[k]
+            launches[k] += conv[k] + spatial_conv[k]
         what = ("logical-shard overhead on one card" if label == "logical"
                 else f"{len(devs)} cards")
         log(f"slice sharded seconds ({what}) " + json.dumps(

@@ -13,8 +13,9 @@ random forest at ``mpath_syn_rfc`` where one exists, else the JAX package's
 heuristic), ``combine_and_split_cs`` builds ``cs_ssv`` from the 'cs'
 fragments. ``collect_properties_from_ssv_partners`` and ``export_matrix``
 write the per-partner cell type, axoness and spiness and the CSV/NPZ matrix.
-Training the forest (``create_syn_rfc``) needs scikit-learn, which the card
-machine lacks: ROADMAP Queue 3 item 6.
+``create_syn_rfc`` trains and pickles that forest with scikit-learn,
+imported when it is called (where it is missing, as on the card machine, it
+raises ``ImportError``).
 """
 
 from __future__ import annotations
@@ -475,10 +476,20 @@ def synssv_o_features(sd_syn: SegmentationDataset) -> np.ndarray:
 
 
 def create_syn_rfc(features: np.ndarray, labels: np.ndarray, save_path: Optional[str] = None):
-    """Training the synapse random forest is not ported."""
-    raise NotImplementedError(
-        "create_syn_rfc trains the synapse random forest with scikit-learn, which the port "
-        "does not depend on: ROADMAP Queue 3, item 6")
+    """Train the synapse random forest (reference: :1190) and pickle it to
+    ``save_path`` (where :func:`classify_synssv_objects` reads it from
+    ``mpath_syn_rfc``). scikit-learn is imported here only: where it is
+    missing this raises ``ImportError``."""
+    from sklearn.ensemble import RandomForestClassifier
+
+    rfc = RandomForestClassifier(n_estimators=200, max_depth=8, n_jobs=-1, random_state=0,
+                                 class_weight="balanced")
+    rfc.fit(features, labels)
+    if save_path:
+        os.makedirs(os.path.dirname(save_path), exist_ok=True)
+        with open(save_path, "wb") as f:
+            pickle.dump(rfc, f)
+    return rfc
 
 
 def classify_synssv_objects(n_workers: Optional[int] = None) -> None:

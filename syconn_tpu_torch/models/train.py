@@ -36,8 +36,12 @@ summation order:
   moments, on the ``tp`` devices; they are gathered for the forward, each
   gradient shard goes back to its owner, the global norm spans all shards
   and the update runs shard by shard;
-* a spatial axis (``sp`` > 1) is ROADMAP Queue 1 item 18 (a spatially
-  partitioned U-Net, halos inside every convolution) and raises.
+* *spatial axis* (``spatial_axis``, a ``UNet3D``): each data shard's z
+  splits over the ``sp`` positions (``parallel/spatial.py``: cut at the
+  model's z downsampling, a halo exchange inside every convolution), each
+  with a replica on its device; one backward runs over the sum of the
+  shards' loss numerators, since the halos couple them, and the
+  denominator, ``loss`` and ``acc`` sum over every data and sp shard.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel import spatial
 from ..parallel.device import gather, on_device, place
 from ..utils.device import DeviceLike, default_device
 
@@ -229,26 +234,41 @@ def state_shardings(state, mesh, tensor_axis: str = "tp") -> Dict[str, Optional[
     return out
 
 
+def _position_devices(mesh, data_axis: str, spatial_axis: Optional[str]
+                      ) -> List[List[torch.device]]:
+    """``[j][k]``: the device of data position j and spatial position k,
+    every other axis at 0 (a missing axis counts as one position)."""
+    n_data = int(mesh.shape.get(data_axis, 1))
+    n_sp = int(mesh.shape.get(spatial_axis, 1)) if spatial_axis else 1
+
+    def at(j, k):
+        return mesh.devices[tuple(j if a == data_axis else k if a == spatial_axis else 0
+                                  for a in mesh.axis_names)]
+
+    return [[at(j, k) for k in range(n_sp)] for j in range(n_data)]
+
+
 class _MeshPlacement:
     """Where a :class:`TrainState` lives on a mesh: one model replica per
-    distinct ``data`` device (the state's own model on the first), the
-    parameters of ``layout`` as shards on the ``tp`` devices, and an AdamW
-    over the first replica's other parameters and those shards, carrying
-    the state's moments over."""
+    distinct device of the ``data`` x ``sp`` positions (the state's own
+    model on the first), the parameters of ``layout`` as shards on the
+    ``tp`` devices, and an AdamW over the first replica's other parameters
+    and those shards, carrying the state's moments over."""
 
-    def __init__(self, state: TrainState, mesh, data_axis: str, tensor_axis: Optional[str],
+    def __init__(self, state: TrainState, mesh, data_axis: str, spatial_axis: Optional[str],
+                 tensor_axis: Optional[str],
                  layout: Optional[Dict[str, Optional[Tuple[int, str]]]]):
         self.mesh = mesh
-        self.data_devs = (mesh.axis_devices(data_axis) if data_axis in mesh.axis_names
-                          else [mesh.devices.reshape(-1)[0]])
-        self.home = self.data_devs[0]
+        self.positions = _position_devices(mesh, data_axis, spatial_axis)
+        self.home = self.positions[0][0]
         if state.device != self.home:
             raise ValueError(f"the state lives on {state.device}; the mesh's first data device "
                              f"is {self.home}")
         self.replicas = {self.home: state.model}
-        for d in self.data_devs:
-            if d not in self.replicas:
-                self.replicas[d] = copy.deepcopy(state.model).to(d)
+        for row in self.positions:
+            for d in row:
+                if d not in self.replicas:
+                    self.replicas[d] = copy.deepcopy(state.model).to(d)
         self.params = dict(state.model.named_parameters())
         self.layout = {k: v for k, v in (layout or {}).items() if v is not None}
         owners = mesh.axis_devices(tensor_axis) if self.layout else []
@@ -330,12 +350,14 @@ def _acc(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return hits.float() / valid.sum().clamp_min(1).float()
 
 
-def _mesh_step(mesh, data_axis: str, tensor_axis: Optional[str], layout, loss_fn: Callable,
-               logits_of: Callable):
-    """The multi-device step: per data shard (mesh order) the replica's
-    forward, the numerator of ``loss_fn.parts`` over the weights summed
-    across all shards, and its gradients, summed onto the first replica;
-    then :meth:`_MeshPlacement.apply`."""
+def _mesh_step(mesh, data_axis: str, spatial_axis: Optional[str], tensor_axis: Optional[str],
+               layout, loss_fn: Callable, logits_of: Callable):
+    """The multi-device step: per data shard (mesh order) the forward, over
+    its z shards where ``spatial_axis`` has several positions
+    (:func:`parallel.spatial.unet_forward`), the numerator of
+    ``loss_fn.parts`` over the weights summed across all shards, and one
+    backward; the gradients of every replica summed onto the first, then
+    :meth:`_MeshPlacement.apply`."""
     parts = getattr(loss_fn, "parts", None)
     if parts is None:
         raise ValueError("a multi-device step needs a loss with .parts (numerator, "
@@ -343,41 +365,60 @@ def _mesh_step(mesh, data_axis: str, tensor_axis: Optional[str], layout, loss_fn
 
     def step(state: TrainState, x, y):
         if state.placement is None:
-            state.placement = _MeshPlacement(state, mesh, data_axis, tensor_axis, layout)
+            state.placement = _MeshPlacement(state, mesh, data_axis, spatial_axis, tensor_axis,
+                                             layout)
         pl = state.placement
         if pl.mesh is not mesh:
             raise ValueError("this state was placed on another mesh")
         x = torch.as_tensor(np.asarray(x, np.float32) if isinstance(x, np.ndarray) else x,
                             dtype=torch.float32)
         y = torch.as_tensor(np.asarray(y) if isinstance(y, np.ndarray) else y).to(torch.int64)
-        n = len(pl.data_devs)
+        n, n_sp = len(pl.positions), len(pl.positions[0])
         xs = torch.chunk(x, n) if n > 1 else [x]
         ys = torch.chunk(y, n) if n > 1 else [y]
         if len(xs) != n or x.shape[0] % n:
             raise ValueError(f"batch {x.shape[0]} must divide over {n} data shards")
+        if n_sp > 1:
+            from .unet3d import UNet3D
+
+            if not isinstance(state.model, UNet3D):
+                raise TypeError(f"a spatial mesh axis splits a UNet3D's z, not a "
+                                f"{type(state.model).__name__}")
+            unit = spatial.z_unit(state.model)
+            spatial.split_extents(x.shape[3], n_sp, unit)  # raises before any work
         # the global denominator first: the weights depend on the labels only
         den = torch.clamp(sum(parts(None, ys_)[1] for ys_ in ys), min=1e-6)
         total: Dict[str, torch.Tensor] = {}
         loss_sum = hits = valid = None
-        for d, xs_, ys_ in zip(pl.data_devs, xs, ys):
-            replica = pl.replicas[d]
-            replica.train()
-            named = list(replica.named_parameters())
-            with on_device(d):
-                xd, yd = place(xs_, d), place(ys_, d)
-                logits = logits_of(replica(xd))
-                loss = parts(logits, yd)[0] / place(den, d)
+        for row, xs_, ys_ in zip(pl.positions, xs, ys):
+            models = [pl.replicas[d] for d in row]
+            uniq = list({id(m): m for m in models}.values())
+            for m in uniq:
+                m.train()
+            d0 = row[0]
+            named = [(k, q) for m in uniq for k, q in m.named_parameters()]
+            with on_device(d0):
+                if n_sp > 1:  # each z shard on its own device, halos copied there
+                    xk = [place(t, d) for t, d in zip(spatial.split_z(xs_, n_sp, unit), row)]
+                    yk = [place(t, d) for t, d in zip(spatial.split_z(ys_, n_sp, unit), row)]
+                    logits = spatial.unet_forward(models, xk)
+                else:
+                    yk = [place(ys_, d0)]
+                    logits = [logits_of(models[0](place(xs_, d0)))]
+                num = sum(place(parts(lg, yy)[0], d0) for lg, yy in zip(logits, yk))
+                loss = num / place(den, d0)
                 gs = torch.autograd.grad(loss, [q for _, q in named])
             for (k, _), g in zip(named, gs):
                 g = place(g, pl.home)
                 total[k] = g if k not in total else total[k] + g
-            m = yd >= 0
-            h = place(((logits.detach().argmax(-1) == yd) & m).sum(), pl.home)
-            v = place(m.sum(), pl.home)
             ld = place(loss.detach(), pl.home)
             loss_sum = ld if loss_sum is None else loss_sum + ld
-            hits = h if hits is None else hits + h
-            valid = v if valid is None else valid + v
+            for lg, yy in zip(logits, yk):
+                m = yy >= 0
+                h = place(((lg.detach().argmax(-1) == yy) & m).sum(), pl.home)
+                v = place(m.sum(), pl.home)
+                hits = h if hits is None else hits + h
+                valid = v if valid is None else valid + v
         pl.apply(state, total)
         return state, {"loss": loss_sum, "acc": hits.float() / valid.clamp_min(1).float()}
 
@@ -392,22 +433,19 @@ def make_train_step(mesh=None, data_axis: str = "data", spatial_axis: Optional[s
     returned). Metrics stay device scalars.
 
     With a ``mesh`` (``parallel.device.DeviceMesh``): the batch splits over
-    ``data_axis``; with ``tensor_axis`` in the mesh and a
-    ``state_template`` (a :class:`TrainState` or module, for
-    :func:`state_shardings`), the chosen parameters split over it. The
-    first step places the state on the mesh (see the module docstring); the
-    state must live on the mesh's first data device. A ``spatial_axis``
-    larger than 1 raises (ROADMAP Queue 1 item 18)."""
+    ``data_axis`` and a ``UNet3D``'s z over ``spatial_axis``, whose z must
+    split by ``parallel.spatial.split_extents`` (else ``ValueError``);
+    with ``tensor_axis`` in the mesh and a ``state_template`` (a
+    :class:`TrainState` or module, for :func:`state_shardings`), the chosen
+    parameters split over it. The first step places the state on the mesh
+    (see the module docstring); the state must live on the mesh's first
+    data device."""
     if mesh is not None:
-        if spatial_axis and int(mesh.shape.get(spatial_axis, 1)) > 1:
-            raise NotImplementedError(
-                f"training with a spatial mesh axis ({spatial_axis!r} > 1: a spatially "
-                "partitioned U-Net with halos inside every convolution) is ROADMAP Queue 1 "
-                "item 18 and is not ported yet")
         layout = None
         if tensor_axis and tensor_axis in mesh.axis_names and state_template is not None:
             layout = state_shardings(state_template, mesh, tensor_axis)
-        return _mesh_step(mesh, data_axis, tensor_axis, layout, loss_fn, lambda out: out)
+        return _mesh_step(mesh, data_axis, spatial_axis, tensor_axis, layout, loss_fn,
+                          lambda out: out)
 
     def step(state: TrainState, x, y):
         x, y = _input(state, x), _labels(state, y)
@@ -427,7 +465,7 @@ def make_class_train_step(mesh=None, dict_output: bool = False):
     splits over its ``data`` axis, parameters replicated (see
     :func:`make_train_step`)."""
     if mesh is not None:
-        return _mesh_step(mesh, "data", None, None, softmax_xent_loss,
+        return _mesh_step(mesh, "data", None, None, None, softmax_xent_loss,
                           (lambda out: out["logits"]) if dict_output else (lambda out: out))
 
     def step(state: TrainState, x, y):

@@ -89,7 +89,10 @@ class Conv3d(nn.Module):
         self.stride = tuple(int(s) for s in stride)
         self.transpose = transpose
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, z_pads=None) -> torch.Tensor:
+        """``z_pads`` (lo, hi) replaces the SAME zeros of z: a z shard that
+        carries its neighbours' halo (``parallel/spatial.py``) pads only
+        what the halo leaves out, (0, 0) or a transpose's dilated tail."""
         xf = x.to(_BF16).float().permute(0, 4, 1, 2, 3)
         w = self.weight.to(_BF16).float()
         if self.transpose:
@@ -97,11 +100,14 @@ class Conv3d(nn.Module):
             sx, sy, sz = self.stride
             xd = xf.new_zeros((b, c, (X - 1) * sx + 1, (Y - 1) * sy + 1, (Z - 1) * sz + 1))
             xd[:, :, ::sx, ::sy, ::sz] = xf
+            xf, stride = xd, (1, 1, 1)
             pads = transpose_pads(self.stride)
-            y = F.conv3d(F.pad(xd, _torch_pads(pads)), w)
         else:
+            stride = self.stride
             pads = same_pads(xf.shape[2:], self.stride, self.weight.shape[-1])
-            y = F.conv3d(F.pad(xf, _torch_pads(pads)), w, stride=self.stride)
+        if z_pads is not None:
+            pads = pads[:2] + [tuple(z_pads)]
+        y = F.conv3d(F.pad(xf, _torch_pads(pads)), w, stride=stride)
         return y.permute(0, 2, 3, 4, 1).to(_BF16) + self.bias.to(_BF16)
 
 
@@ -199,8 +205,7 @@ class UNet3D(nn.Module):
         ``full_res=False`` the patched logits (B, X/px, Y/py, Z/pz,
         n_classes * pvox) grouped as (class, patch_voxel)."""
         depth = len(self.features)
-        h = (x.float() / 127.5 - 1.0).to(_BF16)
-        h = space_to_depth(h, self.patch)
+        h = self.stem(x)
         skips = []
         for i in range(depth):
             h = getattr(self, f"ConvBlock_{i}")(h)
@@ -211,6 +216,16 @@ class UNet3D(nn.Module):
             h = getattr(self, f"ConvTranspose_{k}")(h)
             h = torch.cat([h, skips[i]], dim=-1)
             h = getattr(self, f"ConvBlock_{depth + k}")(h)
+        return self.logits(h, full_res)
+
+    def stem(self, x: torch.Tensor) -> torch.Tensor:
+        """Raw voxels -> the first level's bf16 input (per voxel, then
+        ``space_to_depth``)."""
+        return space_to_depth((x.float() / 127.5 - 1.0).to(_BF16), self.patch)
+
+    def logits(self, h: torch.Tensor, full_res: bool = True) -> torch.Tensor:
+        """The last block's output -> logits: the 1x1x1 head in f32, then
+        ``packed_to_full`` unless ``full_res`` is False."""
         hw = self.head.weight.reshape(self.head.weight.shape[0], -1).t().float()
         head = h.float() @ hw + self.head.bias.float()
         if not full_res:

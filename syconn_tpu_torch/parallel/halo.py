@@ -6,7 +6,9 @@ runs on a shard, the shard receives its neighbours' border slabs: shard i
 the last ``halo`` slabs of shard i-1 and the first ``halo`` of shard i+1,
 each copied to shard i's device (``ppermute`` rings in the JAX package,
 device-to-device copies here). At the volume's ends the halo replicates
-the edge slab (``edge_mode="edge"``) or is zero.
+the edge slab (``edge_mode="edge"``) or is zero. :func:`halo_exchange`
+takes any dim and unequal widths: the spatially split U-Net
+(``spatial.py``) exchanges z halos with it.
 """
 
 from __future__ import annotations
@@ -18,32 +20,48 @@ import torch
 
 from .device import DeviceMesh, data_sharding, on_device, place
 
-__all__ = ["halo_exchange_x", "sharded_volume_apply", "sharded_boundary_mask"]
+__all__ = ["halo_exchange", "halo_exchange_x", "sharded_volume_apply",
+           "sharded_boundary_mask"]
+
+
+def halo_exchange(shards: Sequence[torch.Tensor], before: int, after: int, dim: int = 0,
+                  edge_mode: str = "edge") -> List[torch.Tensor]:
+    """Each shard padded along ``dim`` with the last ``before`` slabs of the
+    shard before it and the first ``after`` of the shard after it, each
+    copied to the shard's device; beyond the mesh's ends the edge slab
+    replicated (``edge_mode="edge"``) or zeros. Built from slicing,
+    :func:`place` and ``cat``, so autograd adds each halo's gradient back
+    onto its neighbour's border."""
+    n = len(shards)
+
+    def border(i, k, last):
+        local, src = shards[i], i - 1 if last else i + 1
+        if 0 <= src < n:
+            t = shards[src]
+            if t.shape[dim] < k:
+                raise ValueError(f"a halo of {k} slabs is wider than shard {src} "
+                                 f"({t.shape[dim]} slabs along dim {dim})")
+            return place(t.narrow(dim, t.shape[dim] - k if last else 0, k), local.device)
+        shape = list(local.shape)
+        shape[dim] = k
+        if edge_mode == "edge":
+            return local.narrow(dim, 0 if last else local.shape[dim] - 1, 1).expand(shape)
+        return local.new_zeros(shape)
+
+    out = []
+    for i, local in enumerate(shards):
+        pieces = ([border(i, before, True)] if before else []) + [local]
+        if after:
+            pieces.append(border(i, after, False))
+        out.append(torch.cat(pieces, dim=dim) if len(pieces) > 1 else local)
+    return out
 
 
 def halo_exchange_x(shards: Sequence[torch.Tensor], halo: int, edge_mode: str = "edge"
                     ) -> List[torch.Tensor]:
     """Each shard padded along dim 0 with its neighbours' border slabs (the
     mesh-edge shards with their edge slab replicated, or zeros)."""
-    n = len(shards)
-    out = []
-    for i, local in enumerate(shards):
-        dev = local.device
-        pad_shape = (halo,) + tuple(local.shape[1:])
-        if i > 0:
-            from_left = place(shards[i - 1][-halo:], dev)
-        elif edge_mode == "edge":
-            from_left = local[:1].expand(pad_shape)
-        else:
-            from_left = local.new_zeros(pad_shape)
-        if i < n - 1:
-            from_right = place(shards[i + 1][:halo], dev)
-        elif edge_mode == "edge":
-            from_right = local[-1:].expand(pad_shape)
-        else:
-            from_right = local.new_zeros(pad_shape)
-        out.append(torch.cat([from_left, local, from_right], dim=0))
-    return out
+    return halo_exchange(shards, halo, halo, 0, edge_mode)
 
 
 def sharded_volume_apply(kernel: Callable[[torch.Tensor], torch.Tensor], vol,

@@ -4,7 +4,10 @@ kernels, writes the inputs the earlier phases leave behind (the seeded
 512x512x256 raw, label, sj and blob-probability volumes, and the driver's
 run B with ``--no-shard_pipeline`` as the serial reference) and runs
 ``phase_slice_sharded``: on a logical mesh of 4 positions on the first
-card, and again on the real cards where the machine has several.
+card, and again on the real cards where the machine has several. Its line
+(h), spatially partitioned training, reports the peak bytes of each card
+for a step at the deployment tile (256, 256, 128), batch 1, z over 4
+positions, against one card.
 
 Usage, from the root of a checkout on a machine with a card::
 

@@ -271,3 +271,69 @@ def test_classify_with_a_pickled_forest_equal_jax(tmp_path, monkeypatch):
     assert np.array_equal(got, want)
     sd = SegmentationDataset("syn_ssv", working_dir=wt)
     assert np.array_equal(got, rfc.predict_proba(synssv_o_features(sd))[:, 1])
+
+
+def test_create_syn_rfc_equals_jax(tmp_path, monkeypatch):
+    """Both packages' ``create_syn_rfc`` fit on the same seeded features and
+    labels: every tree of the two pickles is equal, and so is
+    ``predict_proba``; with the port's pickle in ``mpath_syn_rfc`` the
+    port's ``classify_synssv_objects`` writes the ``syn_prob`` of the JAX
+    package's with its own pickle. Without scikit-learn the port's trainer
+    raises ``ImportError``. The forests predict with ``n_jobs=-1``, whose
+    threads add the trees' probabilities in the order they finish, so the
+    predictions run under joblib's sequential backend (trees in order)."""
+    import pickle
+    import sys
+
+    from joblib import parallel_backend
+
+    from syconn_tpu import global_params as jparams
+    from syconn_tpu.extraction.cs_processing import classify_synssv_objects as jclassify
+    from syconn_tpu.extraction.cs_processing import create_syn_rfc as jcreate
+    from syconn_tpu_torch.extraction.cs_processing import (classify_synssv_objects,
+                                                           create_syn_rfc)
+    from syconn_tpu_torch.handler.config import Config
+    from syconn_tpu_torch.reps.segmentation import SegmentationDataset
+
+    rng = np.random.default_rng(4)
+    feats = rng.normal(size=(96, 14))
+    feats[:, 0] = rng.uniform(0, 5000, 96)  # size_vx
+    labels = (feats[:, 0] + 800 * feats[:, 2] > 2500).astype(np.int64)
+    wj, wt = str(tmp_path / "jax"), str(tmp_path / "port")
+    _make_wd(wj, "jax", "asym")
+    _make_wd(wt, "port", "asym")
+    _run_jax(wj)
+    _run_port(wt)
+    jrfc = jcreate(feats, labels, save_path=Config(wj).mpath_syn_rfc)
+    trfc = create_syn_rfc(feats, labels, save_path=Config(wt).mpath_syn_rfc)
+    probe = rng.normal(size=(64, 14))
+    probe[:, 0] = rng.uniform(0, 5000, 64)
+    pickled = []
+    for w in (wj, wt):
+        with open(Config(w).mpath_syn_rfc, "rb") as f:
+            pickled.append(pickle.load(f))
+    for rfc in [trfc] + pickled:
+        assert len(rfc.estimators_) == len(jrfc.estimators_) == 200
+        for a, b in zip(rfc.estimators_, jrfc.estimators_):
+            for key in ("feature", "threshold", "children_left", "value"):
+                assert np.array_equal(getattr(a.tree_, key), getattr(b.tree_, key))
+    with parallel_backend("sequential"):
+        want = jrfc.predict_proba(probe)
+        assert 0.0 < want[:, 1].min() < want[:, 1].max() < 1.0
+        for rfc in [trfc] + pickled:
+            assert np.array_equal(rfc.predict_proba(probe), want)
+        prev = jparams.wd
+        jparams.wd = wj
+        try:
+            jclassify()
+        finally:
+            jparams.wd = prev
+        with port_wd(wt):
+            classify_synssv_objects()
+            got = SegmentationDataset("syn_ssv").load_numpy_data("syn_prob")
+    assert np.array_equal(got, SegmentationDataset("syn_ssv", working_dir=wj)
+                          .load_numpy_data("syn_prob"))
+    for name in ("sklearn", "sklearn.ensemble"):
+        monkeypatch.setitem(sys.modules, name, None)
+    with pytest.raises(ImportError):
+        create_syn_rfc(feats, labels)

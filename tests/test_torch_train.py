@@ -173,16 +173,34 @@ def test_losses_ignore_label_and_weights():
 
 
 def test_multi_device_forms_raise():
-    """Only a spatial mesh axis larger than 1 raises (spatially partitioned
-    training); the data and tensor forms run
+    """The spatial forms build and take a step (``sp`` > 1 splits the
+    U-Net's z, tests/test_torch_spatial.py holds it to the single-device
+    step); what raises is a z the split rule cannot cut (``ValueError``
+    naming the model's z downsampling f) and a spatial axis for a model
+    that is no U-Net. The data and tensor forms run
     (tests/test_torch_parallel.py)."""
+    from syconn_tpu_torch.models.pointnet import PointClassNet
+    from syconn_tpu_torch.models.unet3d import UNet3D
     from syconn_tpu_torch.parallel.device import get_device_mesh
 
     cpu = [torch.device("cpu")] * 4
+    kw = dict(features=(8, 16), strides=((2, 2, 2),), patch=(2, 2, 2), n_classes=2)
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 255, (2, 8, 8, 16, 1)).astype(np.float32)
+    y = (x[..., 0] > 127).astype(np.int64)
     for shape in ((2, 2), (1, 4)):
         mesh = get_device_mesh(axis_names=("data", "sp"), mesh_shape=shape, devices=cpu)
-        with pytest.raises(NotImplementedError, match="item 18"):
-            T.make_train_step(mesh)
+        state = T.make_train_state(UNet3D(**kw), None, device="cpu")
+        step = T.make_train_step(mesh)
+        state, m = step(state, x, y)
+        assert state.step == 1 and np.isfinite(float(m["loss"]))
+        assert [len(r) for r in state.placement.positions] == [shape[1]] * shape[0]
+        with pytest.raises(ValueError, match="f = 4"):
+            step(state, x[:, :, :, :6], y[:, :, :, :6])
+        with pytest.raises(TypeError, match="UNet3D"):
+            step(T.make_train_state(PointClassNet(n_classes=2, widths=(8, 12), k=4), None,
+                                    device="cpu"), np.zeros((2, 16, 7), np.float32),
+                 np.zeros(2, np.int64))
     mesh = get_device_mesh(axis_names=("data", "sp"), mesh_shape=(4, 1), devices=cpu)
     assert callable(T.make_train_step(mesh)) and callable(T.make_class_train_step(mesh))
     assert callable(T.make_train_step(mesh, spatial_axis=None))
