@@ -117,7 +117,7 @@ Phases, each failing the run on error:
      the card and on the CPU (IoUs within ``EVAL_DENSE_IOU_ATOL``, conv
      launches equal to dispatches x launches a tile, every conv layer of the
      four U-Nets at eval_dense's tile shapes against its plain version);
- 17. multi-device (``phase_slice_sharded``, last): on a logical mesh of 4
+ 17. multi-device (``phase_slice_sharded``): on a logical mesh of 4
      positions on the card (and again on the real cards where there are
      several), step 2's object extraction and property/pair scans, step 6a's
      contact tables (the column kernel once a shard, and against its plain
@@ -130,7 +130,17 @@ Phases, each failing the run on error:
      sp-trained net deployed through the conv kernels; peak bytes per card
      of a step at the deployment tile), each against its serial run; then
      the driver's run B with ``--shard_pipeline`` against run B. On one card
-     the logical shards run one after another: their seconds are overhead.
+     the logical shards run one after another: their seconds are overhead;
+ 18. the driver entry points (``phase_slice_entry``, last):
+     ``tools/entry.py``'s ``entry()`` at (1, 128, 128, 64, 1) through the
+     engine (the three conv kernels), with its own seed-0 weights and with
+     those trained 40 steps on the toy world, against the plain
+     ``UNet3D.forward`` on the card (the trained net within ``ORG_BUDGET``),
+     ms a forward of each;
+     ``dryrun_multichip(8)`` on a logical mesh of the card (its sharded
+     contact check launches the column kernel); ``detect_cs_64bit`` and
+     ``detect_contact_partners`` on ids above 2**32 through the freshly
+     built host library, equal to their numpy versions.
 
 Phase 4's reference check also holds the organelles U-Net, layer by layer
 and end to end, to its own budget (``ORG_BUDGET``), on two seeded inputs.
@@ -4320,6 +4330,148 @@ def phase_slice_sharded(dev, work: str) -> dict:
     return launches
 
 
+ENTRY_REPS = dict(warmup=2, reps=5, inner=2)
+ENTRY_TRAIN = dict(steps=40, lr=1e-3)  # from entry()'s seed-0 weights, on SHARD_TRAIN's batch
+
+
+def _probs_u8(logits):
+    """uint8 class probabilities of full-resolution logits, as the dense
+    predictor rounds them."""
+    import torch
+
+    return torch.round(torch.softmax(logits.float(), dim=-1) * 255.0).to(torch.uint8)
+
+
+def _entry_forward(dev, fn, tree, x, what: str) -> dict:
+    """``fn(tree, x)`` through the engine against the plain
+    ``UNet3D.forward`` on the same device and weights: ``fn``'s outputs must
+    be the argmax and max of the engine's logits. Returns the line's numbers:
+    the probabilities' agreement (``ORG_BUDGET``'s measures), the launches
+    of the one ``fn`` call and ms a forward of each (``cuda_ms``)."""
+    import torch
+
+    from syconn_tpu_torch.models.convert import module_state_from_flax, params_from_flax
+    from syconn_tpu_torch.models.unet3d import UNet3D, unet_variants
+    from syconn_tpu_torch.models.unet_engine import unet_apply_full
+    from syconn_tpu_torch.ops.conv3d import LAUNCHES, reset_launch_counts
+
+    reset_launch_counts()
+    arg, mx = fn(tree, x)
+    _sync(dev)
+    launches = {k: LAUNCHES[k] for k in REPLACES}
+    if torch.device(dev).type == "cuda" and not all(launches.values()):
+        raise AssertionError(f"slice entry {what}: the engine launched {launches}")
+    plain = UNet3D(**unet_variants("organelles"))
+    plain.load_state_dict(module_state_from_flax(tree))
+    plain.to(dev).eval()
+    with torch.no_grad():
+        ref = plain(x)
+        got = unet_apply_full(plain, params_from_flax(tree, dev), x)
+    best = got.max(dim=-1)
+    if not (torch.equal(best.indices, arg) and torch.equal(best.values, mx)):
+        raise AssertionError(f"slice entry {what}: fn's (argmax, max) are not the engine's")
+    if tuple(arg.shape) != tuple(x.shape[:4]) or not bool(torch.isfinite(mx).all()):
+        raise AssertionError(f"slice entry {what}: outputs {tuple(arg.shape)}, finite "
+                             f"{bool(torch.isfinite(mx).all())}")
+    d = (_probs_u8(got).short() - _probs_u8(ref).short()).abs()
+    org = dict(max_abs_lsb=int(d.max()), within_2_lsb=float((d <= 2).float().mean()),
+               argmax_stable=float((arg == ref.argmax(-1)).float().mean()))
+    with torch.no_grad():
+        ms = cuda_ms(lambda: fn(tree, x), **ENTRY_REPS)
+        plain_ms = cuda_ms(lambda: plain(x), **ENTRY_REPS)
+    return dict(weights=what, launches=launches, ms=ms, plain_ms=plain_ms, **org)
+
+
+def phase_slice_entry(dev, work: str) -> dict:
+    """The driver entry points of ``tools/entry.py``: (a) ``entry()`` on the
+    card at ``ENTRY_SHAPE`` on a crop of the toy world's raw, with its own
+    seed-0 weights and with those weights trained ``ENTRY_TRAIN['steps']``
+    steps on that world, each against the plain forward on the card (the
+    trained net held to ``ORG_BUDGET``; random weights give near-tied
+    logits, so their line is checked for launches, shape and finiteness
+    only); (b) ``dryrun_multichip(8)`` on a logical mesh of the card; (c)
+    the 64-bit contact route on the host library built in this run against
+    its numpy version. Returns the launches of (a)'s two ``fn`` calls and
+    (b)'s contact kernel."""
+    import numpy as np
+    import torch
+
+    from syconn_tpu_torch.models import train as mtrain
+    from syconn_tpu_torch.models.unet3d import UNet3D, unet_variants
+    from syconn_tpu_torch.ops import contacts as tcontacts
+    from syconn_tpu_torch.ops.conv3d import LAUNCHES, reset_launch_counts
+    from syconn_tpu_torch.tools import entry as tentry
+    from syconn_tpu_torch.utils.native import get_native
+
+    del work
+    card = smi()
+    t0 = time.perf_counter()
+    fn, (params, x0) = tentry.entry(device=dev)
+    xb, yb, raw = _shard_train_batch()
+    sl = tuple(slice(0, n) for n in x0.shape[1:4])
+    x = torch.from_numpy(raw[sl][None, ..., None].astype(np.float32)).to(x0.device)
+    if tuple(x.shape) != tuple(x0.shape):
+        raise AssertionError(f"slice entry: the world's raw {raw.shape} is smaller than "
+                             f"{tuple(x0.shape)}")
+    st = mtrain.make_train_state(UNet3D(**unet_variants("organelles")), None,
+                                 learning_rate=ENTRY_TRAIN["lr"], seed=0, device=dev)
+    step = mtrain.make_train_step(loss_fn=mtrain.weighted_xent([0.2, 1.0, 1.0, 1.0]))
+    losses = [float(step(st, xb, yb)[1]["loss"]) for _ in range(ENTRY_TRAIN["steps"])]
+    _require_learning("slice entry training", losses)
+    lines = [_entry_forward(dev, fn, params, x, "seed 0"),
+             _entry_forward(dev, fn, st.params, x, f"trained {ENTRY_TRAIN['steps']} steps")]
+    launches = {k: sum(ln["launches"][k] for ln in lines) for k in REPLACES}
+    for ln in lines:
+        log(f"slice entry forward ({card}) " + json.dumps(dict(shape=list(x.shape), **ln)))
+    org = lines[1]
+    if org["within_2_lsb"] < ORG_BUDGET["within_2_lsb"] or \
+            org["argmax_stable"] < ORG_BUDGET["argmax_stable"]:
+        raise AssertionError(f"slice entry: the engine against the plain forward beyond "
+                             f"ORG_BUDGET {ORG_BUDGET} with trained weights: {org}")
+    # (b) the five checks of the dry run on a logical 8-position mesh
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    dry = tentry.dryrun_multichip(8, device=dev)
+    _sync(dev)
+    dry_s = time.perf_counter() - t1
+    launches["detect_cs_columns"] = LAUNCHES["detect_cs_columns"]
+    if torch.device(dev).type == "cuda" and launches["detect_cs_columns"] < 1:
+        raise AssertionError("slice entry: the dry run's sharded contact check did not launch "
+                             "the column kernel")
+    log("slice entry dryrun " + json.dumps(dict(seconds=dry_s, contact_launches=launches[
+        "detect_cs_columns"], **dry)))
+    # (c) the 64-bit contact route: the host library built here vs numpy
+    if get_native() is None:
+        raise AssertionError("slice entry: the host kernel library did not build")
+    rng = np.random.default_rng(9)
+    vol = rng.integers(0, 6, (48, 40, 24)).astype(np.uint64)
+    vol = np.where(vol > 0, vol * np.uint64(2**35) + np.uint64(11), np.uint64(0))
+    t2 = time.perf_counter()
+    native = tcontacts.detect_cs_64bit(vol, stencil=(13, 13, 7))
+    bd = tcontacts.detect_seg_boundaries(vol)
+    partners = tcontacts.detect_contact_partners(vol, bd, [[-2, 2], [-2, 2], [-1, 1]])
+    native_s = time.perf_counter() - t2
+    lib = tcontacts.get_native
+    tcontacts.get_native = lambda: None
+    try:
+        t3 = time.perf_counter()
+        plain = tcontacts.detect_cs_64bit(vol, stencil=(13, 13, 7))
+        plain_bd = tcontacts.detect_seg_boundaries(vol)
+        plain_p = tcontacts.detect_contact_partners(vol, plain_bd, [[-2, 2], [-2, 2], [-1, 1]])
+        plain_s = time.perf_counter() - t3
+    finally:
+        tcontacts.get_native = lib
+    if not (native.any() and np.array_equal(native, plain) and np.array_equal(bd, plain_bd)
+            and np.array_equal(partners, plain_p) and int(native.max()) > 2**32):
+        raise AssertionError("slice entry: the 64-bit contact route differs between the host "
+                             "library and numpy")
+    log("slice entry contacts64 " + json.dumps(dict(
+        shape=list(vol.shape), contacts=int((native[..., 0] > 0).sum()), native_s=native_s,
+        numpy_s=plain_s)))
+    log(f"slice entry phase {time.perf_counter() - t0:.3f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4437,6 +4589,10 @@ def main() -> int:
             launches[k] += sharded_launches[k]
         contacts["launches"] += sharded_launches["detect_cs_columns"]
         log(f"slice sharded phase {time.perf_counter() - t_sharded:.3f} s")
+        entry_launches = phase_slice_entry(dev, work)
+        for k in REPLACES:
+            launches[k] += entry_launches[k]
+        contacts["launches"] += entry_launches["detect_cs_columns"]
     finally:
         resident.clear()
         shutil.rmtree(work, ignore_errors=True)

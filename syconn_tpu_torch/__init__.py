@@ -6,3 +6,5 @@ imports torch, numpy, scipy and the standard library only.
 """
 
 __version__ = "0.1.0"
+
+from . import global_params  # noqa: F401,E402

@@ -5,7 +5,9 @@ from .storage import (
     MeshStorage,
     SkeletonStorage,
     VoxelStorage,
+    VoxelStorageClass,
     VoxelStorageDyn,
+    VoxelStorageL,
     VoxelStorageLazyLoading,
 )
 
@@ -16,6 +18,8 @@ __all__ = [
     "MeshStorage",
     "SkeletonStorage",
     "VoxelStorage",
+    "VoxelStorageClass",
     "VoxelStorageDyn",
+    "VoxelStorageL",
     "VoxelStorageLazyLoading",
 ]

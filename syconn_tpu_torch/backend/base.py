@@ -199,6 +199,17 @@ class StorageBase:
             pass
 
 
+class BTBase:
+    """Placeholder for a big-table backend, as in the reference: only the
+    file-system stores exist."""
+
+    def __init__(self, *a, **kw):
+        raise NotImplementedError("Big-table backend not implemented; use FS stores.")
+
+
+FSBase = StorageBase  # reference alias
+
+
 def compress_payload(arr: np.ndarray) -> tuple:
     """Compress an ndarray, keeping dtype/shape for exact round-trip."""
     arr = np.ascontiguousarray(arr)

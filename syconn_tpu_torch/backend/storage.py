@@ -1,6 +1,7 @@
 """Typed persistent stores for per-object payloads (counterpart of
 ``syconn_tpu/backend/storage.py``, same file formats): ``AttributeDict``,
-``CompressedStorage``, ``VoxelStorage``, ``VoxelStorageDyn``,
+``CompressedStorage``, ``VoxelStorage`` (alias ``VoxelStorageL``,
+``VoxelStorageClass``), ``VoxelStorageDyn``,
 ``VoxelStorageLazyLoading``, ``MeshStorage`` and ``SkeletonStorage``.
 Payloads are ``(bytes, dtype, shape)`` tuples compressed as
 :mod:`.base` describes.
@@ -86,6 +87,10 @@ class VoxelStorage(StorageBase):
         masks, _ = self[key]
         return int(sum(int(m.sum()) for m in masks))
 
+
+# historical aliases, as in the reference
+VoxelStorageL = VoxelStorage
+VoxelStorageClass = VoxelStorage
 
 
 class VoxelStorageDyn(StorageBase):

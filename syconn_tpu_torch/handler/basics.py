@@ -1,11 +1,14 @@
 """Small host-side utilities: list chunking, pickle/kzip IO, the chunked
-volume factory (counterpart of ``syconn_tpu/handler/basics.py``).
+volume factory, ``temp_seed`` and ``safe_copy`` (counterpart of
+``syconn_tpu/handler/basics.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
+import shutil
 import tempfile
 import zipfile
 from typing import Any, Dict, List, Optional, Sequence
@@ -16,11 +19,17 @@ __all__ = [
     "chunkify",
     "chunkify_weighted",
     "chunkify_successive",
+    "flatten_list",
     "load_pkl2obj",
     "write_obj2pkl",
     "kd_factory",
+    "data2kzip",
     "read_txt_from_zip",
+    "read_data_from_zip",
     "write_txt2kzip",
+    "remove_from_zip",
+    "temp_seed",
+    "safe_copy",
 ]
 
 
@@ -43,6 +52,10 @@ def chunkify_weighted(lst: Sequence, n: int, weights: np.ndarray) -> List[List]:
 def chunkify_successive(lst: Sequence, size: int) -> List[List]:
     """Split into consecutive chunks of at most ``size`` elements."""
     return [list(lst[i : i + size]) for i in range(0, len(lst), size)]
+
+
+def flatten_list(lst) -> list:
+    return [el for sub in lst for el in sub]
 
 
 def load_pkl2obj(path: str) -> Any:
@@ -86,6 +99,23 @@ def clear_kd_cache():
 
 
 # --------------------------------------------------------------------- kzip
+def data2kzip(
+    kzip_path: str,
+    fpaths: Sequence[str],
+    fnames_in_zip: Optional[Sequence[str]] = None,
+    force_overwrite: bool = False,
+    verbose: bool = False,
+):
+    """Add files to a (KNOSSOS-style) zip archive."""
+    if fnames_in_zip is None:
+        fnames_in_zip = [os.path.basename(p) for p in fpaths]
+    mode = "w" if (force_overwrite or not os.path.isfile(kzip_path)) else "a"
+    os.makedirs(os.path.dirname(os.path.abspath(kzip_path)), exist_ok=True)
+    with zipfile.ZipFile(kzip_path, mode, zipfile.ZIP_DEFLATED) as zf:
+        for src, name in zip(fpaths, fnames_in_zip):
+            zf.write(src, name)
+
+
 def write_txt2kzip(kzip_path: str, text, fname_in_zip: str, force_overwrite: bool = False):
     if isinstance(text, str):
         text = text.encode()
@@ -98,3 +128,44 @@ def write_txt2kzip(kzip_path: str, text, fname_in_zip: str, force_overwrite: boo
 def read_txt_from_zip(zip_path: str, fname: str) -> bytes:
     with zipfile.ZipFile(zip_path, "r") as zf:
         return zf.read(fname)
+
+
+def read_data_from_zip(zip_path: str, fname: str) -> bytes:
+    return read_txt_from_zip(zip_path, fname)
+
+
+def remove_from_zip(zip_path: str, *fnames: str):
+    """Rewrite the archive without ``fnames`` (through a temporary file
+    beside it)."""
+    tmp_fd, tmp_path = tempfile.mkstemp(
+        suffix=".zip", dir=os.path.dirname(os.path.abspath(zip_path)))
+    os.close(tmp_fd)
+    try:
+        with zipfile.ZipFile(zip_path, "r") as zin, zipfile.ZipFile(
+            tmp_path, "w", zipfile.ZIP_DEFLATED
+        ) as zout:
+            for item in zin.infolist():
+                if item.filename not in fnames:
+                    zout.writestr(item, zin.read(item.filename))
+        shutil.move(tmp_path, zip_path)
+    finally:
+        if os.path.isfile(tmp_path):
+            os.remove(tmp_path)
+
+
+@contextlib.contextmanager
+def temp_seed(seed: int):
+    """Temporarily seed numpy's global RNG."""
+    state = np.random.get_state()
+    np.random.seed(seed)
+    try:
+        yield
+    finally:
+        np.random.set_state(state)
+
+
+def safe_copy(src: str, dst: str, safe: bool = True):
+    """Copy ``src`` to ``dst``; with ``safe``, refuse to overwrite."""
+    if safe and os.path.isfile(dst):
+        raise FileExistsError(dst)
+    shutil.copy(src, dst)

@@ -2,7 +2,8 @@
 (counterpart of ``syconn_tpu/handler/prediction.py``).
 
 The tiled inference engine lives in ``inference/dense.py``
-(``predict_dense_to_kd``, re-exported here with ``certainty_estimate``).
+(``DenseTilePredictor`` and ``predict_dense_to_kd``, re-exported here with
+``certainty_estimate``).
 The seven model getters return the port's ``(module, params)`` as
 ``models/io.py::get_or_init_model`` does: the working directory's model,
 else the packaged weights, else a seed initialisation saved to
@@ -17,10 +18,11 @@ from typing import Dict
 import numpy as np
 
 from .. import global_params
-from ..inference.dense import predict_dense_to_kd  # noqa: F401
+from ..inference.dense import DenseTilePredictor, predict_dense_to_kd  # noqa: F401
 from ..inference.points import certainty_estimate  # noqa: F401
 
 __all__ = [
+    "DenseTilePredictor",
     "predict_dense_to_kd",
     "certainty_estimate",
     "get_myelin_cnn",

@@ -18,12 +18,12 @@ from __future__ import annotations
 import json
 import math
 import os
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 from .msgpack_io import msgpack_restore, msgpack_serialize
 
 __all__ = ["load_model", "load_model_meta", "model_exists", "packaged_model_path",
-           "save_model", "init_model_params", "get_or_init_model"]
+           "register_model", "save_model", "init_model_params", "get_or_init_model"]
 
 
 def packaged_model_path(name: str) -> str:
@@ -47,7 +47,23 @@ def _resolve(path: str) -> str:
     raise FileNotFoundError(f"no model at '{path}' and no packaged weights at '{packaged}'")
 
 
-def _build(arch: dict, params: dict):
+_MODEL_REGISTRY: Dict[str, Callable] = {}
+
+
+def register_model(name: str):
+    """Register a module class under ``name``, the ``cls`` of ``arch.json``;
+    :func:`load_model` consults the registry before the built-in classes."""
+
+    def deco(cls):
+        _MODEL_REGISTRY[name] = cls
+        return cls
+
+    return deco
+
+
+def _get_model_cls(name: str):
+    if name in _MODEL_REGISTRY:
+        return _MODEL_REGISTRY[name]
     from .cmn import MultiViewCMN, TripletCMN, ViewSemSegNet
     from .pointnet import PointClassNet, PointSegNet
     from .unet3d import UNet3D
@@ -55,21 +71,29 @@ def _build(arch: dict, params: dict):
     classes = {"UNet3D": UNet3D, "PointClassNet": PointClassNet, "PointSegNet": PointSegNet,
                "MultiViewCMN": MultiViewCMN, "TripletCMN": TripletCMN,
                "ViewSemSegNet": ViewSemSegNet}
-    if arch["cls"] not in classes:
-        raise KeyError(f"model class '{arch['cls']}' is not ported yet")
+    if name not in classes:
+        raise KeyError(f"Unknown model class '{name}'.")
+    return classes[name]
+
+
+def _build(arch: dict, params: dict):
+    from .cmn import MultiViewCMN, TripletCMN, ViewSemSegNet
+    from .pointnet import PointClassNet, PointSegNet
+
+    cls = _get_model_cls(arch["cls"])
     kw = {k: v for k, v in arch["kwargs"].items() if k != "dtype"}
     # tuples were serialized as lists
     for k, v in list(kw.items()):
         if isinstance(v, list):
             kw[k] = tuple(tuple(x) if isinstance(x, list) else x for x in v)
     # flax infers a layer's input width; the port reads it off the first kernel
-    if arch["cls"] in ("PointClassNet", "PointSegNet"):
+    if issubclass(cls, (PointClassNet, PointSegNet)):
         kw["n_in"] = int(params["_PointBackbone_0"]["Dense_0"]["kernel"].shape[0])
-    elif arch["cls"] in ("MultiViewCMN", "TripletCMN"):
+    elif issubclass(cls, (MultiViewCMN, TripletCMN)):
         kw["n_in"] = int(params["_ViewTrunk_0"]["Conv_0"]["kernel"].shape[2])
-    elif arch["cls"] == "ViewSemSegNet":
+    elif issubclass(cls, ViewSemSegNet):
         kw["n_in"] = int(params["Conv_0"]["kernel"].shape[2])
-    return classes[arch["cls"]](**kw)
+    return cls(**kw)
 
 
 def load_model(path: str) -> Tuple[Any, dict]:

@@ -4,9 +4,11 @@ majority-partner vote and per-contact synapse statistics (counterpart of
 
 * :func:`detect_seg_boundaries` — 6-neighborhood boundary mask.
 * :func:`detect_cs` — valid-convolution scan: for every boundary voxel the
-  most frequent foreign ID in the stencil window is selected (ties ->
-  smallest ID) and the sorted ID pair is packed into one uint64
-  (``min << 32 | max``).
+  most frequent foreign ID in the stencil window (the active config's
+  ``cs_filtersize`` by default) is selected (ties -> smallest ID) and the
+  sorted ID pair is packed into one uint64 (``min << 32 | max``).
+* :func:`detect_cs_64bit`, :func:`detect_contact_partners` — the same vote
+  for uint64 ids, the (low, high) pair in a last axis of 2.
 * :func:`extract_cs_syntype` — per-contact-site synapse stats (syn voxel
   coords, sym/asym counts).
 * :func:`relabel_vol`, :func:`relabel_vol_nonexist2zero` — label remaps
@@ -33,6 +35,8 @@ __all__ = [
     "cs_pair_unpack",
     "detect_seg_boundaries",
     "detect_cs",
+    "detect_cs_64bit",
+    "detect_contact_partners",
     "extract_cs_syntype",
     "relabel_vol",
     "relabel_vol_nonexist2zero",
@@ -53,9 +57,11 @@ def detect_seg_boundaries(arr: np.ndarray) -> np.ndarray:
     """Boolean mask of nonzero voxels with a differing 6-neighbor."""
     arr = np.ascontiguousarray(arr)
     lib = get_native()
-    if lib is not None and arr.dtype == np.uint32 and arr.size > 4096:
+    if lib is not None and arr.dtype in (np.uint32, np.uint64) and arr.size > 4096:
         out = np.empty(arr.shape, dtype=np.uint8)
-        lib.detect_seg_boundaries_u32(arr, arr.shape[0], arr.shape[1], arr.shape[2], out)
+        fn = (lib.detect_seg_boundaries_u32 if arr.dtype == np.uint32
+              else lib.detect_seg_boundaries_u64)
+        fn(arr, arr.shape[0], arr.shape[1], arr.shape[2], out)
         return out.astype(bool)
     return _detect_seg_boundaries_np(arr)
 
@@ -74,27 +80,69 @@ def _detect_seg_boundaries_np(arr: np.ndarray) -> np.ndarray:
     return bdry
 
 
-def detect_cs(arr: np.ndarray, stencil=(13, 13, 7)) -> np.ndarray:
-    """Contact-site detection for uint32 segmentation; packed uint64 output
-    of valid-convolution shape ``arr.shape - stencil + 1``."""
+def _stencil_from_config(stencil) -> np.ndarray:
+    """``stencil``, or the active config's ``cell_objects.cs_filtersize``
+    when it is None; every extent must be odd."""
+    if stencil is None:
+        from .. import global_params
+
+        stencil = global_params.config["cell_objects"]["cs_filtersize"]
     stencil = np.asarray(stencil, dtype=np.int32)
     if not np.all(stencil % 2 == 1):
         raise ValueError(f"stencil must be odd, got {tuple(stencil)}")
+    return stencil
+
+
+def detect_cs(arr: np.ndarray, stencil=None) -> np.ndarray:
+    """Contact-site detection for uint32 segmentation; packed uint64 output
+    of valid-convolution shape ``arr.shape - stencil + 1``."""
+    stencil = _stencil_from_config(stencil)
     arr = np.ascontiguousarray(arr, dtype=np.uint32)
     bdry = detect_seg_boundaries(arr).astype(np.uint8)
     lib = get_native()
     if lib is None:
-        return _detect_cs_np(arr, bdry, stencil)
+        return _detect_cs_np(arr, bdry, stencil, packed=True)
     out = np.empty(tuple(np.array(arr.shape) - stencil + 1), dtype=np.uint64)
     lib.detect_cs_u32(arr, np.ascontiguousarray(bdry), arr.shape[0], arr.shape[1],
                       arr.shape[2], int(stencil[0]), int(stencil[1]), int(stencil[2]), out)
     return out
 
 
-def _detect_cs_np(arr, bdry, stencil) -> np.ndarray:
-    """Exact numpy version: iterates boundary voxels only."""
+def detect_cs_64bit(arr: np.ndarray, stencil=None) -> np.ndarray:
+    """64-bit form of :func:`detect_cs`: a (x, y, z, 2) uint64 array of the
+    (low ID, high ID) partner pair instead of a packed uint64."""
+    stencil = _stencil_from_config(stencil)
+    arr = np.ascontiguousarray(arr, dtype=np.uint64)
+    bdry = detect_seg_boundaries(arr).astype(np.uint8)
+    return _contact_partners(arr, bdry, stencil)
+
+
+def detect_contact_partners(seg_arr, edge_arr, offset) -> np.ndarray:
+    """Reference-shaped form (find_object_properties.py:370) on a given
+    boundary mask ``edge_arr``; ``offset`` is a (3, 2) array of
+    (-half, +half) window extents."""
+    offset = np.asarray(offset)
+    stencil = (offset[:, 1] - offset[:, 0] + 1).astype(np.int32)
+    arr = np.ascontiguousarray(seg_arr, dtype=np.uint64)
+    return _contact_partners(arr, np.ascontiguousarray(edge_arr, dtype=np.uint8), stencil)
+
+
+def _contact_partners(arr: np.ndarray, bdry: np.ndarray, stencil: np.ndarray) -> np.ndarray:
+    lib = get_native()
+    if lib is None:
+        return _detect_cs_np(arr, bdry, stencil, packed=False)
+    out = np.empty(tuple(np.array(arr.shape) - stencil + 1) + (2,), dtype=np.uint64)
+    lib.detect_contact_partners_u64(arr, bdry, arr.shape[0], arr.shape[1], arr.shape[2],
+                                    int(stencil[0]), int(stencil[1]), int(stencil[2]), out)
+    return out
+
+
+def _detect_cs_np(arr, bdry, stencil, packed: bool) -> np.ndarray:
+    """Exact numpy version: iterates boundary voxels only. ``packed`` gives
+    one uint64 a voxel, else the (low, high) pair in a last axis of 2."""
     off = stencil // 2
-    out = np.zeros(tuple(np.array(arr.shape) - stencil + 1), dtype=np.uint64)
+    out_shape = tuple(np.array(arr.shape) - stencil + 1)
+    out = np.zeros(out_shape if packed else out_shape + (2,), dtype=np.uint64)
     core = bdry[off[0]:arr.shape[0] - off[0], off[1]:arr.shape[1] - off[1],
                 off[2]:arr.shape[2] - off[2]]
     for x, y, z in np.argwhere(core):
@@ -107,7 +155,10 @@ def _detect_cs_np(arr, bdry, stencil) -> np.ndarray:
             continue
         best = ids[np.argmax(counts)]  # unique() ascending -> ties pick smallest
         lo, hi = (center, best) if center < best else (best, center)
-        out[x, y, z] = (np.uint64(lo) << np.uint64(32)) | np.uint64(hi)
+        if packed:
+            out[x, y, z] = (np.uint64(lo) << np.uint64(32)) | np.uint64(hi)
+        else:
+            out[x, y, z] = lo, hi
     return out
 
 

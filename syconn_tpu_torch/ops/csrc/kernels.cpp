@@ -33,17 +33,15 @@ static void relabel(T* vol, int64_t n, const T* keys, const T* vals, int64_t n_m
   }
 }
 
-extern "C" {
-
 // 6-neighborhood boundary mask; background (0) voxels are never flagged.
-void detect_seg_boundaries_u32(const uint32_t* seg, int64_t nx, int64_t ny,
-                               int64_t nz, uint8_t* out) {
+template <typename T>
+static void seg_boundaries(const T* seg, int64_t nx, int64_t ny, int64_t nz, uint8_t* out) {
 #pragma omp parallel for schedule(static)
   for (int64_t x = 0; x < nx; ++x) {
     for (int64_t y = 0; y < ny; ++y) {
       for (int64_t z = 0; z < nz; ++z) {
         const int64_t idx = (x * ny + y) * nz + z;
-        const uint32_t c = seg[idx];
+        const T c = seg[idx];
         if (c == 0) {
           out[idx] = 0;
           continue;
@@ -65,40 +63,41 @@ void detect_seg_boundaries_u32(const uint32_t* seg, int64_t nx, int64_t ny,
 // Output has valid-convolution shape (n - stencil + 1 per axis). For every
 // voxel whose boundary flag is set, the most frequent ID in the
 // (sx, sy, sz) window that is neither 0 nor the center ID is selected
-// (ties -> smallest ID) and the sorted pair is packed as
-// (min(center, partner) << 32) | max(center, partner).
-void detect_cs_u32(const uint32_t* seg, const uint8_t* bdry, int64_t nx,
-                   int64_t ny, int64_t nz, int sx, int sy, int sz,
-                   uint64_t* out) {
+// (ties -> smallest ID). kPacked writes the sorted pair as
+// (min(center, partner) << 32) | max(center, partner), one uint64 a voxel;
+// otherwise (low, high) go into a 2-channel output.
+template <typename T, bool kPacked>
+static void contact_vote(const T* seg, const uint8_t* bdry, int64_t nx, int64_t ny,
+                         int64_t nz, int sx, int sy, int sz, uint64_t* out) {
   const int ox = sx / 2, oy = sy / 2, oz = sz / 2;
   const int64_t onx = nx - 2 * ox, ony = ny - 2 * oy, onz = nz - 2 * oz;
+  constexpr int64_t kCh = kPacked ? 1 : 2;
 
 #pragma omp parallel
   {
-    std::unordered_map<uint32_t, int> counts;
+    std::unordered_map<T, int> counts;
     counts.reserve(64);
 #pragma omp for schedule(dynamic, 4)
     for (int64_t x = 0; x < onx; ++x) {
       for (int64_t y = 0; y < ony; ++y) {
         for (int64_t z = 0; z < onz; ++z) {
           const int64_t cidx = ((x + ox) * ny + (y + oy)) * nz + (z + oz);
-          const int64_t oidx = (x * ony + y) * onz + z;
-          if (bdry[cidx] == 0) {
-            out[oidx] = 0;
-            continue;
-          }
-          const uint32_t center = seg[cidx];
+          uint64_t* o = out + ((x * ony + y) * onz + z) * kCh;
+          o[0] = 0;
+          if (!kPacked) o[kCh - 1] = 0;
+          if (bdry[cidx] == 0) continue;
+          const T center = seg[cidx];
           counts.clear();
           for (int dx = 0; dx < sx; ++dx) {
             for (int dy = 0; dy < sy; ++dy) {
-              const uint32_t* row = seg + ((x + dx) * ny + (y + dy)) * nz + z;
+              const T* row = seg + ((x + dx) * ny + (y + dy)) * nz + z;
               for (int dz = 0; dz < sz; ++dz) {
-                const uint32_t v = row[dz];
+                const T v = row[dz];
                 if (v != 0 && v != center) ++counts[v];
               }
             }
           }
-          uint32_t best = 0;
+          T best = 0;
           int best_cnt = 0;
           for (const auto& kv : counts) {
             if (kv.second > best_cnt ||
@@ -107,17 +106,44 @@ void detect_cs_u32(const uint32_t* seg, const uint8_t* bdry, int64_t nx,
               best_cnt = kv.second;
             }
           }
-          if (best_cnt > 0) {
-            const uint64_t lo = center < best ? center : best;
-            const uint64_t hi = center < best ? best : center;
-            out[oidx] = (lo << 32) | hi;
+          if (best_cnt == 0) continue;
+          const uint64_t lo = center < best ? center : best;
+          const uint64_t hi = center < best ? best : center;
+          if (kPacked) {
+            o[0] = (lo << 32) | hi;
           } else {
-            out[oidx] = 0;
+            o[0] = lo;
+            o[kCh - 1] = hi;
           }
         }
       }
     }
   }
+}
+
+extern "C" {
+
+void detect_seg_boundaries_u32(const uint32_t* seg, int64_t nx, int64_t ny,
+                               int64_t nz, uint8_t* out) {
+  seg_boundaries(seg, nx, ny, nz, out);
+}
+
+void detect_seg_boundaries_u64(const uint64_t* seg, int64_t nx, int64_t ny,
+                               int64_t nz, uint8_t* out) {
+  seg_boundaries(seg, nx, ny, nz, out);
+}
+
+void detect_cs_u32(const uint32_t* seg, const uint8_t* bdry, int64_t nx,
+                   int64_t ny, int64_t nz, int sx, int sy, int sz,
+                   uint64_t* out) {
+  contact_vote<uint32_t, true>(seg, bdry, nx, ny, nz, sx, sy, sz, out);
+}
+
+// The 64-bit form: (low, high) partner ids in a 2-channel output.
+void detect_contact_partners_u64(const uint64_t* seg, const uint8_t* bdry,
+                                 int64_t nx, int64_t ny, int64_t nz, int sx,
+                                 int sy, int sz, uint64_t* out) {
+  contact_vote<uint64_t, false>(seg, bdry, nx, ny, nz, sx, sy, sz, out);
 }
 
 void relabel_u64(uint64_t* vol, int64_t n, const uint64_t* keys, const uint64_t* vals,

@@ -13,7 +13,7 @@ Semantics:
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -21,6 +21,7 @@ __all__ = [
     "object_properties_arrays",
     "find_object_properties",
     "pair_counts",
+    "map_subcell_extract_props",
     "merge_prop_arrays",
 ]
 
@@ -106,6 +107,37 @@ def pair_counts(a: np.ndarray, b: np.ndarray) -> Tuple[np.ndarray, np.ndarray, n
     counts = np.diff(np.append(starts, len(av)))
     return av[starts], bv[starts], counts.astype(np.int64)
 
+
+
+def map_subcell_extract_props(
+    cell: np.ndarray, subcell_stack: np.ndarray
+) -> Tuple[List, List, List]:
+    """Fused cell + organelle property scan with overlap mapping
+    (reference: find_object_properties_C.pyx:112).
+
+    Args:
+        cell: 3D cell supervoxel labels.
+        subcell_stack: (n_organelles, x, y, z) organelle labels.
+
+    Returns:
+        ``[cell_rep, cell_bb, cell_sizes]`` (dicts keyed by ID),
+        ``[sc_rep_list, sc_bb_list, sc_size_list]`` (one dict per organelle),
+        ``mapping_list`` (per organelle: ``{subcell_id: {cell_id: count}}``).
+    """
+    cell_props = list(find_object_properties(cell))
+    sc_rep, sc_bb, sc_sz, mappings = [], [], [], []
+    for ii in range(subcell_stack.shape[0]):
+        sc = subcell_stack[ii]
+        r, b, s = find_object_properties(sc)
+        sc_rep.append(r)
+        sc_bb.append(b)
+        sc_sz.append(s)
+        a_ids, c_ids, cnts = pair_counts(sc, cell)
+        mp: Dict[int, Dict[int, int]] = {}
+        for sc_id, c_id, cnt in zip(a_ids, c_ids, cnts):
+            mp.setdefault(int(sc_id), {})[int(c_id)] = int(cnt)
+        mappings.append(mp)
+    return cell_props, [sc_rep, sc_bb, sc_sz], mappings
 
 
 def merge_prop_arrays(parts, offsets=None):

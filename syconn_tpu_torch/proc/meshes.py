@@ -22,6 +22,7 @@ __all__ = [
     "merge_meshes",
     "merge_someshes",
     "mesh_area_calc",
+    "get_object_mesh",
     "write_mesh2kzip",
     "triangulation_from_coords",
     "calc_rot_matrices",
@@ -102,6 +103,12 @@ def merge_someshes(sos, **kw) -> List[np.ndarray]:
 def mesh_area_calc(mesh) -> float:
     """Surface area in µm²."""
     return mesh_area(np.asarray(mesh[0]), np.asarray(mesh[1]))
+
+
+def get_object_mesh(so, downsampling=None, **kw):
+    """The object's mesh computed anew from its voxels
+    (reference: proc/meshes.py:1029)."""
+    return so.mesh_from_scratch(downsampling=downsampling)
 
 
 def triangulation_from_coords(

@@ -5,9 +5,9 @@ shard, ``subfold_from_ix_OLD`` is digit-based), the inverse
 ``ix_from_subfold``, ``get_unique_subfold_ixs``, ``surface_samples`` and
 the working-directory plumbing of the dataset classes, and
 ``colorcode_vertices`` (labels onto mesh vertices by k-nearest majority, for
-the spine-head volumes of step 7) and ``knossos_ml_from_sso`` (a cell's
-KNOSSOS merge list, for the kzip export). ``assign_rep_values`` comes with
-the item that uses it.
+the spine-head volumes of step 7), ``assign_rep_values`` (nearest-neighbour
+labels) and ``knossos_ml_from_sso`` (a cell's KNOSSOS merge list, for the
+kzip export).
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ __all__ = [
     "get_unique_subfold_ixs",
     "surface_samples",
     "colorcode_vertices",
+    "assign_rep_values",
     "knossos_ml_from_sso",
     "SegmentationBase",
 ]
@@ -159,6 +160,18 @@ def colorcode_vertices(
         return labels
     colors = np.asarray(colors)
     return colors[labels]
+
+
+def assign_rep_values(
+    target_coords: np.ndarray,
+    rep_coords: np.ndarray,
+    rep_values: np.ndarray,
+    nb_cpus: int = 1,
+) -> np.ndarray:
+    """Assign each target coordinate the value of its nearest rep coord."""
+    tree = spatial.cKDTree(np.asarray(rep_coords))
+    _, ixs = tree.query(np.asarray(target_coords), k=1, workers=nb_cpus)
+    return np.asarray(rep_values)[ixs]
 
 
 def knossos_ml_from_sso(sso, comment: Optional[str] = None) -> str:

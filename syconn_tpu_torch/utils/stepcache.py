@@ -7,8 +7,9 @@ computes only the missing ones (:func:`cached_map`); ``overwrite=True``
 clears the cache first.
 Side effects (chunk writes) happen before the item's result is stored, and
 chunk files are written atomically, so a stored item implies durable
-outputs. The cache root is an argument: the working directory for the
-config-driven entry points, a target's parent for the explicit-path ones.
+outputs. The cache root is the working directory for the config-driven
+entry points (the active config's when it is None), a target's parent for
+the explicit-path ones.
 """
 
 from __future__ import annotations
@@ -22,14 +23,24 @@ from typing import Any, Callable, List, Optional, Sequence
 
 log = logging.getLogger("syconn_tpu_torch.stepcache")
 
-__all__ = ["StepCache", "cached_map"]
+__all__ = ["StepCache", "cached_map", "step_cache_dir"]
+
+
+def step_cache_dir(step: str, working_dir: Optional[str] = None) -> str:
+    """Cache directory of a named step, ``<working_dir>/.stepcache/<step>``
+    (the active config's working directory when None)."""
+    if working_dir is None:
+        from .. import global_params
+
+        working_dir = str(global_params.config.working_dir)
+    return os.path.join(str(working_dir), ".stepcache", step)
 
 
 class StepCache:
     """Per-item resumable result store of one pipeline step."""
 
-    def __init__(self, step: str, cache_root: str, overwrite: bool = False):
-        self.dir = os.path.join(str(cache_root), ".stepcache", step)
+    def __init__(self, step: str, cache_root: Optional[str] = None, overwrite: bool = False):
+        self.dir = step_cache_dir(step, cache_root)
         if overwrite and os.path.isdir(self.dir):
             shutil.rmtree(self.dir)
         os.makedirs(self.dir, exist_ok=True)
@@ -50,6 +61,12 @@ class StepCache:
         with open(tmp, "wb") as f:
             pickle.dump(value, f, protocol=pickle.HIGHEST_PROTOCOL)
         os.replace(tmp, p)
+
+    def clear(self) -> None:
+        """Drop every stored item (and the completeness mark)."""
+        if os.path.isdir(self.dir):
+            shutil.rmtree(self.dir)
+        os.makedirs(self.dir, exist_ok=True)
 
     # step-level completeness: tells "the step finished" from "outputs exist
     # but the run crashed mid-step"

@@ -23,6 +23,10 @@ import syconn_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(syconn_tpu_torch.__path__, "syconn_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
+from syconn_tpu_torch.parallel import batchjob_script, start_multiprocess_imap
+from syconn_tpu_torch.ops.contacts import detect_contact_partners, detect_cs_64bit
+from syconn_tpu_torch.tools.entry import dryrun_multichip, entry
+assert start_multiprocess_imap(abs, [-1, 2, -3], nb_cpus=2) == [1, 2, 3]  # progress, no tqdm
 import chip_smoke
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "flax", "optax", "msgpack", "syconn_tpu", "h5py", "tqdm",
@@ -40,7 +44,7 @@ def test_port_imports_without_jax_flax_msgpack_or_reference():
     import syconn_tpu_torch
 
     n = len(list(pkgutil.walk_packages(syconn_tpu_torch.__path__, "syconn_tpu_torch.")))
-    assert int(out.stdout.strip().splitlines()[-1]) == n >= 120
+    assert int(out.stdout.strip().splitlines()[-1]) == n >= 127
     names = {m.name for m in pkgutil.walk_packages(syconn_tpu_torch.__path__, "syconn_tpu_torch.")}
     assert {f"syconn_tpu_torch.{m}" for m in (
         "models.train", "models.traindata", "utils.testdata", "utils.testdata_neuro",
@@ -52,7 +56,8 @@ def test_port_imports_without_jax_flax_msgpack_or_reference():
         "examples.multiview_astrocyte", "analysis", "analysis.server", "analysis.viewer_client",
         "analysis.bio_interface", "exec.exec_analysis_prep", "reps.connectivity_helper",
         "handler.compression", "handler.prediction", "handler.training", "cnn.eval_dense",
-        "parallel.device", "parallel.halo", "parallel.sharded", "parallel.pipeline")} <= names
+        "parallel.device", "parallel.halo", "parallel.sharded", "parallel.pipeline",
+        "parallel.executor", "tools.entry")} <= names
     assert os.path.isfile(os.path.join(ROOT, "syconn_tpu_torch", "analysis", "viewer.html"))
 
 
