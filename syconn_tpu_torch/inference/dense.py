@@ -46,6 +46,7 @@ from ..models.convert import params_from_flax
 from ..models.unet_engine import engine_supported, unet_apply_packed
 from ..parallel.device import canonical_device, data_sharding, gather, on_device, place
 from ..parallel.sharded import mesh_from_config
+from ..utils import tracing
 from ..utils.device import default_device
 
 log = logging.getLogger("syconn_tpu_torch.inference")
@@ -137,8 +138,9 @@ class DenseTilePredictor:
         bits = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.uint8)
         # engine params, thresholds and bit weights once per distinct device
         self._on = {}
-        for d in dict.fromkeys(self._replicas + [home]):
-            self._on[d] = (params_from_flax(params, d), place(thr, d), place(bits, d))
+        with tracing.span("predictor.build", replicas=n_data):
+            for d in dict.fromkeys(self._replicas + [home]):
+                self._on[d] = (params_from_flax(params, d), place(thr, d), place(bits, d))
         self._home = home
         ts = tuple(int(t) for t in self.tile_shape)
         h = tuple(int(x) for x in self.halo)
@@ -172,16 +174,19 @@ class DenseTilePredictor:
         device."""
         tsp = self.tile_shape // self.patch
         hp = self.halo // self.patch
-        lg = unet_apply_packed(self.model, params, x[..., None])
-        lg = lg[:, hp[0]:hp[0] + tsp[0], hp[1]:hp[1] + tsp[1], hp[2]:hp[2] + tsp[2], :]
-        b, sx, sy, sz, _ = lg.shape
-        C = self.n_classes
-        probs = torch.softmax(lg.reshape(b, sx, sy, sz, C, self._pvox), dim=-2)
-        if self.mode == "probs":
-            out = torch.round(probs * 255.0).to(torch.uint8)
-            return out.reshape(b, sx, sy, sz, C * self._pvox)
-        fg = (probs >= thr).reshape(b, sx, sy, sz, C * self._pvox // 8, 8)
-        return (fg.to(torch.uint8) * bit_weights).sum(-1, dtype=torch.uint8)
+        b = int(x.shape[0])
+        with tracing.span("engine.forward", device=x.device, batch=b):
+            lg = unet_apply_packed(self.model, params, x[..., None])
+        with tracing.span("engine.head", device=x.device, batch=b):
+            lg = lg[:, hp[0]:hp[0] + tsp[0], hp[1]:hp[1] + tsp[1], hp[2]:hp[2] + tsp[2], :]
+            b, sx, sy, sz, _ = lg.shape
+            C = self.n_classes
+            probs = torch.softmax(lg.reshape(b, sx, sy, sz, C, self._pvox), dim=-2)
+            if self.mode == "probs":
+                out = torch.round(probs * 255.0).to(torch.uint8)
+                return out.reshape(b, sx, sy, sz, C * self._pvox)
+            fg = (probs >= thr).reshape(b, sx, sy, sz, C * self._pvox // 8, 8)
+            return (fg.to(torch.uint8) * bit_weights).sum(-1, dtype=torch.uint8)
 
     # ------------------------------------------------------------- pipeline
     def dispatch(self, x: np.ndarray):
@@ -204,6 +209,7 @@ class DenseTilePredictor:
         pending.event.synchronize()
         return pending.host.numpy().copy()
 
+    @tracing.traced("dense.unpack")
     def unpack(self, out: np.ndarray) -> np.ndarray:
         """Host depth-to-space of a packed patched array.
 
@@ -289,18 +295,22 @@ class ResidentDensePredictor(DenseTilePredictor):
         offs += [offs[-1]] * ((-n_tiles) % k)
         outs = []
         for g in range(0, len(offs), k):
-            wins = torch.stack([padded[o[0]:o[0] + win[0], o[1]:o[1] + win[1],
-                                       o[2]:o[2] + win[2]] for o in offs[g:g + k]])
+            with tracing.span("resident.stack", device=padded.device, tiles=k):
+                wins = torch.stack([padded[o[0]:o[0] + win[0], o[1]:o[1] + win[1],
+                                           o[2]:o[2] + win[2]] for o in offs[g:g + k]])
             outs.append(self._forward(wins))
             self.n_forward += 1
-        return torch.cat(outs)[:n_tiles]
+        with tracing.span("resident.concat", device=self.device, tiles=n_tiles):
+            return torch.cat(outs)[:n_tiles]
 
+    @tracing.traced("resident.predict")
     def predict_volume_packed(self, vol):
         """vol (X, Y, Z) uint8, numpy or a device tensor -> (packed tiles
         (T, sx, sy, sz, C * pvox) on the device, tile grid)."""
         sh = np.array(vol.shape, np.int64)
         ts, h = self.tile_shape, self.halo
         grid = tuple(int(g) for g in _cdiv(sh, ts))
+        tracing.annotate(tiles=int(np.prod(grid)))
         pad = [(int(h[i]), int(grid[i] * ts[i] - sh[i] + h[i])) for i in range(3)]
         if isinstance(vol, np.ndarray):
             padded = torch.from_numpy(np.pad(vol.astype(np.uint8, copy=False), pad)).to(
@@ -332,18 +342,20 @@ class ResidentDensePredictor(DenseTilePredictor):
         t, sx, sy, sz, _ = packed.shape
         C = self.n_classes
         px, py, pz = (int(p) for p in self.patch)
-        if self.mode == "masks":
-            shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
-            packed = (packed[..., None] >> shifts) & 1
-        one = packed.reshape(t, sx, sy, sz, C, px * py * pz)[:, :, :, :, ch, :]
-        # patched -> full resolution (depth-to-space), then tile grid -> volume
-        one = one.reshape(t, sx, sy, sz, px, py, pz).permute(0, 1, 4, 2, 5, 3, 6)
-        v = one.reshape(tuple(grid) + (sx * px, sy * py, sz * pz)).permute(0, 3, 1, 4, 2, 5)
-        v = v.reshape(grid[0] * sx * px, grid[1] * sy * py, grid[2] * sz * pz)
-        v = v[:out_shape[0], :out_shape[1], :out_shape[2]].contiguous()
-        return v * 255 if self.mode == "masks" else v
+        with tracing.span("resident.reassembly", device=packed.device, channel=int(ch)):
+            if self.mode == "masks":
+                shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
+                packed = (packed[..., None] >> shifts) & 1
+            one = packed.reshape(t, sx, sy, sz, C, px * py * pz)[:, :, :, :, ch, :]
+            # patched -> full resolution (depth-to-space), then tile grid -> volume
+            one = one.reshape(t, sx, sy, sz, px, py, pz).permute(0, 1, 4, 2, 5, 3, 6)
+            v = one.reshape(tuple(grid) + (sx * px, sy * py, sz * pz)).permute(0, 3, 1, 4, 2, 5)
+            v = v.reshape(grid[0] * sx * px, grid[1] * sy * py, grid[2] * sz * pz)
+            v = v[:out_shape[0], :out_shape[1], :out_shape[2]].contiguous()
+            return v * 255 if self.mode == "masks" else v
 
 
+@tracing.traced("dense.predict")
 def predict_dense_to_kd(
     kd_path: str,
     target_paths: Dict[str, str],
@@ -438,6 +450,7 @@ def predict_dense_to_kd(
             raise ValueError("seg output requires probs mode")
         seg_kd = create(seg_path)
 
+    tracing.annotate(route="resident" if isinstance(pred, ResidentDensePredictor) else "stream")
     if isinstance(pred, ResidentDensePredictor):
         return _predict_resident(pred, src, res_src, targets, seg_kd, target_paths,
                                  channel_mapping, mag, target_mags, io_threads, n_dispatch,
@@ -479,6 +492,8 @@ def predict_dense_to_kd(
     # host prefetch -> device dispatch -> host unpack + write
     batches = [list(range(i, min(i + batch, len(tiles)))) for i in range(0, len(tiles), batch)]
     prefetch_depth = pipeline_depth + 2
+    load_tile, unpack_batch_and_write = (tracing.carry(load_tile),
+                                         tracing.carry(unpack_batch_and_write))
     load_futs = {bi: [loader.submit(load_tile, tiles[i]) for i in batches[bi]]
                  for bi in range(min(prefetch_depth, len(batches)))}
     inflight: deque = deque()
@@ -622,6 +637,7 @@ def _predict_resident(pred, src, res_src, targets, seg_kd, target_paths, channel
             seg_kd.save_seg(labels, offset, target_mags)
 
     n_tiles = 0
+    write_one = tracing.carry(write_one)
     with ThreadPoolExecutor(max_workers=io_threads) as writer:
         futs = []
         for z_base, packed, grid_r in packed_parts:

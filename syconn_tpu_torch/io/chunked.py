@@ -22,6 +22,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..utils import tracing
+
 try:
     import zstandard as _zstd
 except ImportError:  # not installed on every machine
@@ -129,6 +131,8 @@ class ChunkedVolume:
         # border chunks (e.g. mag-pyramid writes from adjacent tiles)
         self._locks_guard = threading.Lock()
         self._chunk_locks: Dict[str, threading.Lock] = {}
+        # writer threads register channels and mags of one store at once
+        self._meta_lock = threading.Lock()
 
     def _chunk_lock(self, path: str) -> threading.Lock:
         with self._locks_guard:
@@ -177,7 +181,8 @@ class ChunkedVolume:
         return os.path.isfile(os.path.join(path, "meta.json"))
 
     def _save_meta(self):
-        tmp = os.path.join(self.path, f"meta.json.tmp{os.getpid()}")
+        """Dump ``_meta``; callers on shared volumes hold ``_meta_lock``."""
+        tmp = os.path.join(self.path, f"meta.json.tmp{os.getpid()}_{threading.get_ident()}")
         with open(tmp, "w") as f:
             json.dump(self._meta, f, indent=1)
         os.replace(tmp, os.path.join(self.path, "meta.json"))
@@ -262,8 +267,10 @@ class ChunkedVolume:
                     data = np.ascontiguousarray(data.astype(narrow))
                     break
         tmp = p + f".tmp{os.getpid()}_{threading.get_ident()}"
+        with tracing.span("chunk.compress"):
+            buf = _compress(self._codec, data.tobytes())
         with open(tmp, "wb") as f:
-            f.write(_compress(self._codec, data.tobytes()))
+            f.write(buf)
         os.replace(tmp, p)
         _chunk_cache_invalidate(p)
 
@@ -277,7 +284,7 @@ class ChunkedVolume:
 
     def _run(self, work, jobs):
         if len(jobs) > 1:
-            list(self._get_pool().map(work, jobs))
+            list(self._get_pool().map(tracing.carry(work), jobs))
         else:
             for j in jobs:
                 work(j)
@@ -323,27 +330,39 @@ class ChunkedVolume:
                 return
             src = data[lo[0] - offset[0]:hi[0] - offset[0], lo[1] - offset[1]:hi[1] - offset[1],
                        lo[2] - offset[2]:hi[2] - offset[2]]
-            with self._chunk_lock(self._chunk_path(channel, mag, cix)):
-                if np.all(lo == cofs) and np.all(hi == cofs + cs):
+            path = self._chunk_path(channel, mag, cix)
+            lock = self._chunk_lock(path)
+            with tracing.span("chunk.lock_wait"):
+                lock.acquire()
+            try:
+                rmw = not (np.all(lo == cofs) and np.all(hi == cofs + cs))
+                if not rmw:
                     chunk = src
                 else:
-                    chunk = self._read_chunk(channel, mag, cix, dtype)
-                    chunk = np.zeros(tuple(cs), dtype=dtype) if chunk is None else chunk.copy()
+                    with tracing.span("chunk.rmw_read"):
+                        chunk = self._read_chunk(channel, mag, cix, dtype)
+                        chunk = (np.zeros(tuple(cs), dtype=dtype) if chunk is None
+                                 else chunk.copy())
                     chunk[lo[0] - cofs[0]:hi[0] - cofs[0], lo[1] - cofs[1]:hi[1] - cofs[1],
                           lo[2] - cofs[2]:hi[2] - cofs[2]] = src
-                self._write_chunk(channel, mag, cix, chunk)
+                with tracing.span("chunk.write", key=path, rmw=rmw):
+                    self._write_chunk(channel, mag, cix, chunk)
+            finally:
+                lock.release()
 
         self._run(work, self._chunk_jobs(offset, size))
-        chans = self._meta.setdefault("channels", {})
-        if channel not in chans:
-            chans[channel] = {"dtype": np.dtype(dtype).name}
-            self._save_meta()
+        with self._meta_lock:
+            chans = self._meta.setdefault("channels", {})
+            if channel not in chans:
+                chans[channel] = {"dtype": np.dtype(dtype).name}
+                self._save_meta()
 
     # ----------------------------------------------------------- public API
     def load_raw(self, offset=(0, 0, 0), size=None, mag: int = 1) -> np.ndarray:
         if size is None:
             size = self.mag_shape(mag) - np.asarray(offset)
-        return self._load("raw", offset, size, mag)
+        with tracing.span("chunk.load", mag=mag):
+            return self._load("raw", offset, size, mag)
 
     def load_seg(self, offset=(0, 0, 0), size=None, mag: int = 1) -> np.ndarray:
         if size is None:
@@ -352,7 +371,8 @@ class ChunkedVolume:
 
     def save_raw(self, data: np.ndarray, offset=(0, 0, 0), mags: Sequence[int] = (1,),
                  data_mag: int = 1, downsample: str = "mean"):
-        self._save_multi_mag("raw", data, offset, mags, data_mag, downsample=downsample)
+        with tracing.span("chunk.save", mags=tuple(mags)):
+            self._save_multi_mag("raw", data, offset, mags, data_mag, downsample=downsample)
 
     def save_seg(self, data: np.ndarray, offset=(0, 0, 0), mags: Sequence[int] = (1,),
                  data_mag: int = 1):
@@ -371,17 +391,21 @@ class ChunkedVolume:
                     f"{f} (mag {mag} from data_mag {data_mag})")
             if f == 1:
                 d = data
-            elif downsample == "stride":
-                d = data[::f, ::f, ::f]
-            else:  # mean pooling, edge-padded to a multiple of f
-                sh = np.array(data.shape)
-                dp = np.pad(data.astype(np.float32), [(0, p) for p in (-sh) % f], mode="edge")
-                d = dp.reshape(dp.shape[0] // f, f, dp.shape[1] // f, f, dp.shape[2] // f, f
-                               ).mean(axis=(1, 3, 5)).astype(data.dtype)
+            else:
+                with tracing.span("chunk.downsample", mag=mag, mode=downsample):
+                    if downsample == "stride":
+                        d = data[::f, ::f, ::f]
+                    else:  # mean pooling, edge-padded to a multiple of f
+                        sh = np.array(data.shape)
+                        dp = np.pad(data.astype(np.float32), [(0, p) for p in (-sh) % f],
+                                    mode="edge")
+                        d = dp.reshape(dp.shape[0] // f, f, dp.shape[1] // f, f,
+                                       dp.shape[2] // f, f).mean(axis=(1, 3, 5)).astype(data.dtype)
             self._save(channel, d, offset // f, mag)
-            if mag not in self._meta["mags"]:
-                self._meta["mags"] = sorted(set(self._meta["mags"]) | {mag})
-                self._save_meta()
+            with self._meta_lock:
+                if mag not in self._meta["mags"]:
+                    self._meta["mags"] = sorted(set(self._meta["mags"]) | {mag})
+                    self._save_meta()
 
     # --------------------------------------------------- reference-style init
     @classmethod

@@ -1,8 +1,9 @@
 """Utilities of the port: device selection (``device.py``), synthetic worlds
 (``testdata.py``, ``testdata_neuro.py``, the device generator
 ``testdata_device.py``), quality scoring and the quality fixture
-(``quality_metrics.py``), per-item resume (``stepcache.py``), file locks and
-the native host-kernel loader.
+(``quality_metrics.py``), per-item resume (``stepcache.py``), file locks,
+the native host-kernel loader and the spans recorded under a profiler
+(``tracing.py``).
 
 Not ported, with no GPU meaning: the JAX package's ``utils/jaxcfg.py``,
 ``utils/linkprobe.py`` and ``utils/linkcfg.py`` pin JAX's platform and probe
