@@ -29,6 +29,7 @@ step (object extraction reads ``mi``/``vc`` from there).
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
@@ -507,6 +508,7 @@ def predict_dense_to_kd(
         for i in batches[bi]:
             n_vox += int(np.prod(np.minimum(tiles[i] + ts, sh) - tiles[i]))
 
+    assembling = _assembling(targets, seg_kd)
     try:
         for bi in range(len(batches)):
             data = np.stack([f.result() for f in load_futs.pop(bi)])
@@ -529,6 +531,7 @@ def predict_dense_to_kd(
     finally:
         writer.shutdown()
         loader.shutdown()
+        assembling.close()  # every chunk on disk before the clock stops
     dt = time.perf_counter() - t0
     stats = {"n_voxels": n_vox, "seconds": dt, "mvox_per_s": n_vox / dt / 1e6,
              "tiles": len(tiles), "dispatches": n_dispatch, "route": "stream",
@@ -536,6 +539,17 @@ def predict_dense_to_kd(
     log.info("dense prediction done: %.1f MVx in %.1f s (%.1f MVx/s)",
              n_vox / 1e6, dt, stats["mvox_per_s"])
     return stats
+
+
+def _assembling(targets: Dict[str, ChunkedVolume], seg_kd: Optional[ChunkedVolume]):
+    """The target stores' ``assembling`` contexts as one: each chunk that
+    several tiles' pieces make up (the mag-2 levels, edge chunks) is written
+    once, and every chunk is on disk when the context ends."""
+    stack = contextlib.ExitStack()
+    for v in [*targets.values(), seg_kd]:
+        if v is not None:
+            stack.enter_context(v.assembling())
+    return stack
 
 
 def _packed_tile_bytes(pred: DenseTilePredictor) -> int:
@@ -638,7 +652,7 @@ def _predict_resident(pred, src, res_src, targets, seg_kd, target_paths, channel
 
     n_tiles = 0
     write_one = tracing.carry(write_one)
-    with ThreadPoolExecutor(max_workers=io_threads) as writer:
+    with _assembling(targets, seg_kd), ThreadPoolExecutor(max_workers=io_threads) as writer:
         futs = []
         for z_base, packed, grid_r in packed_parts:
             packed = packed if isinstance(packed, np.ndarray) else packed.cpu().numpy()

@@ -9,10 +9,15 @@ The codec is recorded in the metadata (``"codec"``: ``"zstd"`` or
 ``"zlib"``; a store without the key is zstd). A new store writes zstd when
 the ``zstandard`` package imports and the standard library's ``zlib``
 otherwise; both are read.
+
+Writes go through to disk before ``save_raw``/``save_seg`` return, except
+inside :meth:`ChunkedVolume.assembling`, which assembles chunks that writes
+cover in part in host memory and writes each once it is covered.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import threading
@@ -62,10 +67,28 @@ def _decompress(codec: str, buf: bytes) -> bytes:
 # ------------------------------------------------------ decompressed cache
 # A chunk+halo read touches up to 8 neighbouring chunks; a process-wide LRU
 # of decompressed chunks (keyed by file path, invalidated on write) makes
-# each chunk pay its decompression once. Budget: SYCONN_TPU_CHUNK_CACHE_GB.
+# each chunk pay its decompression once. Budget: SYCONN_TPU_CHUNK_CACHE_GB,
+# shared with the chunks staged by ``ChunkedVolume.assembling`` (below),
+# which the cache gives way to.
 _cc_lock = threading.Lock()
 _cc_store: "dict[str, np.ndarray]" = {}
 _cc_bytes = 0
+# staged chunks by file path, oldest first; each entry is changed, written
+# and removed under its volume's lock of that chunk
+_staged: "dict[str, _Staged]" = {}
+_st_bytes = 0
+
+
+class _Staged:
+    """A chunk being assembled: its buffer, the voxels its pieces covered
+    inside the volume (overlaps counted twice), the voxels it needs and the
+    pieces copied in."""
+
+    __slots__ = ("vol", "channel", "mag", "cix", "buf", "count", "need", "pieces")
+
+    def __init__(self, vol, channel, mag, cix, buf, need):
+        self.vol, self.channel, self.mag, self.cix = vol, channel, mag, cix
+        self.buf, self.need, self.count, self.pieces = buf, need, 0, 0
 
 
 def _cc_budget() -> int:
@@ -77,7 +100,11 @@ def _cc_budget() -> int:
 
 
 def _chunk_cache_get(path: str) -> Optional[np.ndarray]:
+    """The chunk's staged buffer, else its cached decompressed array."""
     with _cc_lock:
+        ent = _staged.get(path)
+        if ent is not None:
+            return ent.buf
         arr = _cc_store.pop(path, None)
         if arr is not None:
             _cc_store[path] = arr  # move to end = most recent
@@ -93,10 +120,11 @@ def _chunk_cache_put(path: str, arr: np.ndarray) -> None:
         old = _cc_store.pop(path, None)
         if old is not None:
             _cc_bytes -= old.nbytes
-        while _cc_bytes + arr.nbytes > budget and _cc_store:
+        while _cc_bytes + _st_bytes + arr.nbytes > budget and _cc_store:
             _cc_bytes -= _cc_store.pop(next(iter(_cc_store))).nbytes
-        _cc_store[path] = arr
-        _cc_bytes += arr.nbytes
+        if _st_bytes + arr.nbytes <= budget:
+            _cc_store[path] = arr
+            _cc_bytes += arr.nbytes
 
 
 def _chunk_cache_invalidate(path: str) -> None:
@@ -108,10 +136,44 @@ def _chunk_cache_invalidate(path: str) -> None:
 
 
 def clear_chunk_cache() -> None:
+    """Empty the decompressed cache (staged chunks are kept: they are
+    written when their ``assembling`` context ends)."""
     global _cc_bytes
     with _cc_lock:
         _cc_store.clear()
         _cc_bytes = 0
+
+
+def _stage_put(path: str, ent: _Staged) -> None:
+    """Register a staged chunk; the cache gives way to it."""
+    global _cc_bytes, _st_bytes
+    budget = _cc_budget()
+    with _cc_lock:
+        _staged[path] = ent
+        _st_bytes += ent.buf.nbytes
+        while _cc_bytes + _st_bytes > budget and _cc_store:
+            _cc_bytes -= _cc_store.pop(next(iter(_cc_store))).nbytes
+
+
+def _stage_pop(path: str) -> Optional[_Staged]:
+    global _st_bytes
+    with _cc_lock:
+        ent = _staged.pop(path, None)
+        if ent is not None:
+            _st_bytes -= ent.buf.nbytes
+        return ent
+
+
+def _stage_trim() -> None:
+    """Write the oldest staged chunks as they stand while the staged bytes
+    pass the budget. The caller holds no chunk lock."""
+    budget = _cc_budget()
+    while True:
+        with _cc_lock:
+            if _st_bytes <= budget or not _staged:
+                return
+            path, ent = next(iter(_staged.items()))
+        ent.vol._write_staged(path)
 
 
 def _cdiv(a, b):
@@ -133,6 +195,7 @@ class ChunkedVolume:
         self._chunk_locks: Dict[str, threading.Lock] = {}
         # writer threads register channels and mags of one store at once
         self._meta_lock = threading.Lock()
+        self._assembling = 0  # open assembling() contexts
 
     def _chunk_lock(self, path: str) -> threading.Lock:
         with self._locks_guard:
@@ -321,6 +384,7 @@ class ChunkedVolume:
         offset = np.asarray(offset, dtype=np.int64)
         size = np.array(data.shape, dtype=np.int64)
         cs = self.chunk_shape
+        chunk_bytes = int(np.prod(cs)) * np.dtype(dtype).itemsize
 
         def work(cix):
             cofs = np.array(cix) * cs
@@ -330,25 +394,32 @@ class ChunkedVolume:
                 return
             src = data[lo[0] - offset[0]:hi[0] - offset[0], lo[1] - offset[1]:hi[1] - offset[1],
                        lo[2] - offset[2]:hi[2] - offset[2]]
+            inner = tuple(slice(a - c, b - c) for a, b, c in zip(lo, hi, cofs))
             path = self._chunk_path(channel, mag, cix)
             lock = self._chunk_lock(path)
+            created = False
             with tracing.span("chunk.lock_wait"):
                 lock.acquire()
             try:
-                rmw = not (np.all(lo == cofs) and np.all(hi == cofs + cs))
-                if not rmw:
-                    chunk = src
+                if np.all(lo == cofs) and np.all(hi == cofs + cs):
+                    if self._assembling:
+                        _stage_pop(path)
+                    with tracing.span("chunk.write", key=path, rmw=False, pieces=1, early=False):
+                        self._write_chunk(channel, mag, cix, src)
+                elif self._assembling and chunk_bytes <= _cc_budget():
+                    created = self._stage(channel, mag, cix, path, inner, src, lo, hi)
                 else:
                     with tracing.span("chunk.rmw_read"):
                         chunk = self._read_chunk(channel, mag, cix, dtype)
                         chunk = (np.zeros(tuple(cs), dtype=dtype) if chunk is None
                                  else chunk.copy())
-                    chunk[lo[0] - cofs[0]:hi[0] - cofs[0], lo[1] - cofs[1]:hi[1] - cofs[1],
-                          lo[2] - cofs[2]:hi[2] - cofs[2]] = src
-                with tracing.span("chunk.write", key=path, rmw=rmw):
-                    self._write_chunk(channel, mag, cix, chunk)
+                    chunk[inner] = src
+                    with tracing.span("chunk.write", key=path, rmw=True, pieces=1, early=False):
+                        self._write_chunk(channel, mag, cix, chunk)
             finally:
                 lock.release()
+            if created:
+                _stage_trim()
 
         self._run(work, self._chunk_jobs(offset, size))
         with self._meta_lock:
@@ -356,6 +427,89 @@ class ChunkedVolume:
             if channel not in chans:
                 chans[channel] = {"dtype": np.dtype(dtype).name}
                 self._save_meta()
+
+    def _stage(self, channel, mag, cix, path, inner, src, lo, hi) -> bool:
+        """Copy a piece into the chunk's staged buffer, created from what the
+        chunk holds (staged, cached, on disk, else zeros), and write the
+        buffer once the pieces have covered the chunk's part inside the
+        volume. Holds the chunk's lock. True where it created the buffer."""
+        dtype = _CHANNEL_DTYPES[channel]
+        cofs = np.array(cix) * self.chunk_shape
+        end = np.minimum(cofs + self.chunk_shape, self.mag_shape(mag))
+        with _cc_lock:
+            ent = _staged.get(path)
+        created = ent is None
+        if created:
+            with tracing.span("chunk.rmw_read"):
+                chunk = self._read_chunk(channel, mag, cix, dtype)
+                buf = (np.zeros(tuple(self.chunk_shape), dtype=dtype) if chunk is None
+                       else chunk.copy())
+            ent = _Staged(self, channel, mag, cix, buf, int(np.prod(np.maximum(end - cofs, 0))))
+            _stage_put(path, ent)
+        with tracing.span("chunk.stage"):
+            ent.buf[inner] = src
+        ent.pieces += 1
+        ent.count += int(np.prod(np.maximum(np.minimum(hi, end) - lo, 0)))
+        if ent.count >= ent.need:
+            _stage_pop(path)
+            with tracing.span("chunk.write", key=path, rmw=True, pieces=ent.pieces, early=False):
+                self._write_chunk(channel, mag, cix, ent.buf)
+        return created
+
+    def _write_staged(self, path: str) -> None:
+        """Write a staged chunk as it stands (the budget or the context's end
+        forced it), unless a writer wrote it meanwhile."""
+        with self._chunk_lock(path):
+            ent = _stage_pop(path)
+            if ent is not None:
+                with tracing.span("chunk.write", key=path, rmw=True, pieces=ent.pieces,
+                                  early=True):
+                    self._write_chunk(ent.channel, ent.mag, ent.cix, ent.buf)
+
+    @contextlib.contextmanager
+    def assembling(self):
+        """Write each chunk once while a caller writes a volume piece by piece.
+
+        Inside the context a write that covers a chunk only in part copies
+        its piece into a staged buffer of the chunk (made once from what the
+        chunk holds: cache, file, else zeros), and the chunk is compressed
+        and written when its pieces have covered its part inside the volume
+        (``mag_shape``), under the chunk's lock as every write. Pieces that
+        overlap count twice and write the chunk early; a later piece then
+        stages it again from the file: the result is the same, only slower.
+        A write that covers a whole chunk goes to disk at once and drops the
+        chunk's staged buffer. Reads of this path's chunks (``load_raw``,
+        ``load_seg``) see staged pieces; a read racing a write of the same
+        chunk sees each voxel before or after it.
+
+        Staged bytes count against the decompressed cache's budget
+        (``SYCONN_TPU_CHUNK_CACHE_GB``): past it the oldest staged chunk is
+        written as it stands, and a chunk larger than the budget is written
+        through. When the outermost context ends, on success or on an
+        exception, every chunk still staged is written, so the store on disk
+        is what write-through would have left. End it after the writes it
+        encloses have returned. Re-entrant, and shared by the threads that
+        write to this volume object.
+        """
+        with self._locks_guard:
+            self._assembling += 1
+        try:
+            yield self
+        finally:
+            with self._locks_guard:
+                self._assembling -= 1
+                last = self._assembling == 0
+            if last:
+                with _cc_lock:
+                    paths = [p for p, e in _staged.items() if e.vol is self]
+                errors = []
+                for p in paths:
+                    try:
+                        self._write_staged(p)
+                    except Exception as e:  # noqa: BLE001 - write the others, then raise
+                        errors.append(e)
+                if errors:
+                    raise errors[0]
 
     # ----------------------------------------------------------- public API
     def load_raw(self, offset=(0, 0, 0), size=None, mag: int = 1) -> np.ndarray:

@@ -1,11 +1,14 @@
 """The port's dense-prediction slice against the JAX package on the CPU:
 ``predict_dense_to_kd`` / ``predict_myelin`` with the packaged weights at
-full width, the tile-shrink policy and OOM retry, and the chunk store.
+full width, the tile-shrink policy and OOM retry, and the chunk store;
+and on the port alone, that the dense step writes each target chunk once.
 
 Tolerances: probs mode uint8 maps within 2 LSB on >= 99.9% of voxels;
 masks mode (threshold 248/255, device rule ``p >= thr/255``) equal on
 >= 99.9% of voxels.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -16,8 +19,11 @@ from syconn_tpu.io.chunked import ChunkedVolume as JVolume
 from syconn_tpu.models import io as jio
 from syconn_tpu_torch.exec.exec_dense_prediction import predict_myelin
 from syconn_tpu_torch.inference import dense as tdense
+from syconn_tpu_torch.io import resident
 from syconn_tpu_torch.io.chunked import ChunkedVolume as TVolume
 from syconn_tpu_torch.models import io as tio
+from syconn_tpu_torch.models.unet3d import UNet3D
+from syconn_tpu_torch.utils import tracing
 
 SHAPE = (64, 64, 32)
 TILE = dict(tile_shape=(64, 64, 32), halo=(8, 8, 4))  # input 80x80x40 -> patched 20^3
@@ -138,3 +144,67 @@ def test_chunked_volume_roundtrip(tmp_path, codec):
     np.testing.assert_array_equal(TVolume.open(str(tmp_path / "j")).load_seg(mag=2), j.load_seg(mag=2))
     with pytest.raises(ValueError, match="aligned"):
         t2.save_raw(raw, offset=(1, 0, 0), mags=(2,))
+
+
+def _chunk_files(root):
+    return {str(p.relative_to(root)): p.read_bytes() for p in sorted(root.rglob("*.zst"))}
+
+
+@pytest.mark.parametrize("route", ["stream", "resident"])
+@pytest.mark.parametrize("mode", ["probs", "masks"])
+@pytest.mark.parametrize("shape", [(64, 64, 32), (56, 48, 24)])
+def test_dense_step_writes_each_chunk_once(tmp_path, monkeypatch, shape, mode, route):
+    """``predict_dense_to_kd`` writes every chunk of its targets once (one
+    ``chunk.write`` span a chunk): the mag-2 chunk that the 8 tiles' pieces
+    make up, and at the clipped size the edge chunks. The targets' files at
+    mags 1 and 2 equal those that the same unpacked tiles leave written
+    through one by one."""
+    model = UNet3D(features=(8, 16), strides=((2, 2, 2),), patch=(2, 2, 2), n_classes=4)
+    params = tio.init_model_params(model, 0)
+    vol = np.random.default_rng(4).integers(0, 255, shape, dtype=np.uint8)
+    src = str(tmp_path / "raw")
+    TVolume.create(src, scale=(10, 10, 20), boundary=shape, chunk_shape=(32, 32, 16)).save_raw(vol)
+    if route == "resident":
+        assert resident.put(src, "raw", vol, device="cpu")
+    writes = []
+    real = {"raw": TVolume.save_raw, "seg": TVolume.save_seg}
+
+    def recording(channel):
+        def save(self, data, offset=(0, 0, 0), mags=(1,), **kw):
+            writes.append((self.path, channel, np.array(data), tuple(int(o) for o in offset),
+                           tuple(mags), kw))
+            return real[channel](self, data, offset, mags, **kw)
+        return save
+
+    monkeypatch.setattr(TVolume, "save_raw", recording("raw"))
+    monkeypatch.setattr(TVolume, "save_seg", recording("seg"))
+    targets = {n: str(tmp_path / n) for n in ("mi", "vc")}
+    seg = str(tmp_path / "seg") if mode == "probs" else None
+    tracing.clear()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            stats = tdense.predict_dense_to_kd(
+                src, targets, model, params, {"mi": 1, "vc": 2}, tile_shape=(32, 32, 16),
+                halo=(8, 8, 4), seg_path=seg, mode=mode, show_progress=False, device="cpu",
+                io_threads=4)
+        recs = [r for r in tracing.records() if r["name"] == "chunk.write"]
+    finally:
+        tracing.clear()
+        resident.clear()
+    assert stats["route"] == route
+    outs = [*targets.values()] + ([seg] if seg else [])
+    keys = [r["attrs"]["key"] for r in recs if r["attrs"]["key"].startswith(tuple(outs))]
+    n_files = sum(len(_chunk_files(tmp_path / os.path.basename(p))) for p in outs)
+    assert n_files == len(outs) * (8 + 1)
+    assert len(keys) == len(set(keys)) == n_files
+    assert not any(r["attrs"]["early"] for r in recs)
+    assert sorted(r["attrs"]["pieces"] for r in recs) == [1] * 8 * len(outs) + [8] * len(outs)
+    for path in outs:
+        out = TVolume.open(path)
+        ref = TVolume.create(path + "_ref", scale=out.scale, boundary=out.boundary,
+                             chunk_shape=out.chunk_shape, codec=out.codec)
+        for p, channel, data, offset, mags, kw in writes:
+            if p == path:
+                real[channel](ref, data, offset, mags, **kw)
+        assert _chunk_files(tmp_path / os.path.basename(path + "_ref")) == \
+            _chunk_files(tmp_path / os.path.basename(path))

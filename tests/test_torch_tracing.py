@@ -22,8 +22,9 @@ SPANS = {
     "engine.head": {"batch"}, "predictor.build": {"replicas"}, "resident.predict": {"tiles"},
     "resident.stack": {"tiles"}, "resident.concat": {"tiles"}, "resident.reassembly": {"channel"},
     "chunk.load": {"mag"}, "chunk.save": {"mags"}, "chunk.downsample": {"mag", "mode"},
-    "chunk.lock_wait": set(), "chunk.rmw_read": set(), "chunk.write": {"key", "rmw"},
-    "chunk.compress": set(),
+    "chunk.lock_wait": set(), "chunk.rmw_read": set(),
+    "chunk.write": {"key", "rmw", "pieces", "early"}, "chunk.compress": set(),
+    "chunk.stage": set(),
 }
 SHAPE = (64, 64, 32)  # 2 x 2 x 2 tiles of (32, 32, 16); one mag-2 chunk a map
 
@@ -125,12 +126,14 @@ def test_spans_with_parent_thread_and_call(tmp_path, clean):
             write = by_id[r["parent"]]
             assert write["name"] == "chunk.write"
             assert by_id[write["parent"]]["name"] == "chunk.save"
-    # 2 maps x (8 mag-1 chunks written once + 1 mag-2 chunk written 8 times),
-    # a call
+    # 2 maps x (8 mag-1 chunks + 1 mag-2 chunk assembled from 8 pieces), each
+    # written once, a call
     for c in calls:
         writes = [r for r in recs if r["name"] == "chunk.write" and r["call"] == c["id"]]
-        assert len(writes) == 32 and len({w["attrs"]["key"] for w in writes}) == 18
-        assert sum(w["attrs"]["rmw"] for w in writes) == 16
+        assert len(writes) == 18 and len({w["attrs"]["key"] for w in writes}) == 18
+        assert sum(w["attrs"]["rmw"] for w in writes) == 2
+        assert sorted(w["attrs"]["pieces"] for w in writes) == [1] * 16 + [8] * 2
+        assert not any(w["attrs"]["early"] for w in writes)
     assert next(r for r in recs if r["name"] == "resident.predict")["attrs"]["tiles"] == 8
 
 
