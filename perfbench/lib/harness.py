@@ -73,6 +73,12 @@ class Cell:
         self.route = load_module(os.path.join(BENCH_DIR, "routes", self.traffic["route"] + ".py"),
                                  "perfbench_route_" + _safe(self.traffic["route"]))
         self.chips = int(ov.get("chips", self.entry["chips"]))
+        # a rate that no end-to-end entry lists for the cell would be left
+        # out of its result line, and the run would report set-up alone
+        if self.rate_metric not in {m["name"] for m in self.end_to_end()}:
+            raise ValueError(f"cell {workload!r} computes the rate {self.rate_metric!r}, which no "
+                             "end_to_end entry of BENCHMARK.json lists for it: add the cell to "
+                             "that metric's workloads")
 
     @property
     def arch(self) -> Dict:
@@ -116,6 +122,8 @@ class Ctx:
         self.stretch_spans: List[Dict] = []
         self.stretch_passes = 0
         self.first_traced: Optional[int] = None
+        self.traced_passes: List[int] = []      # of every stretch traced, kept or not
+        self.trace_clock: List[Dict] = []       # each traced stretch's clock ratio by card
         self.window_passes = 0
         self.window_seconds = 0.0
         self.pass_seconds: List[float] = []
@@ -159,6 +167,21 @@ class Ctx:
     @property
     def mapping(self) -> Dict[str, int]:
         return {k: int(v) for k, v in self.config["mapping"].items()}
+
+
+# stretches traced at most in one run: one whose trace did not keep the
+# card's clock is traced again from the next pass
+TRACE_ATTEMPTS = 3
+
+
+def load_stretch(prof):
+    """The stretch's device trace, with each card's clock ratio; None
+    without a card (a CPU run has no device trace to read)."""
+    from . import trace as tr
+
+    if not prof.cards:
+        return None
+    return tr.load(prof.out_path, prof.marks, prof.device_elapsed())
 
 
 def _sync(ctx: Ctx) -> None:
@@ -222,6 +245,7 @@ def run(root: str, workload: str, seed: int, seconds: float, trace: bool,
                 torch.cuda.reset_peak_memory_stats(d)
 
         stretch = int(ctx.traffic.get("trace_passes", 1)) if trace else 0
+        cards = ctx.card_indices if ctx.device.type == "cuda" else []
         first_traced = None
         prof = None
         passes = 0
@@ -232,19 +256,29 @@ def run(root: str, workload: str, seed: int, seconds: float, trace: bool,
             elapsed = t_last - t0
             if stretch and first_traced is None and elapsed >= 0.4 * seconds:
                 first_traced = passes
-                prof = tr.Profile(os.path.join(work, "trace.json")).__enter__()
+                prof = tr.Profile(os.path.join(work, "trace.json"), cards).__enter__()
                 ctx.spans.clear()
                 prof.mark(tr.START)
             route.run_pass(ctx, state, passes + 1)
             passes += 1
             if prof is not None and passes == first_traced + stretch:
                 prof.mark(tr.END)
-                ctx.stretch_spans = ctx.spans.snapshot()
+                snapshot = ctx.spans.snapshot()
                 prof.__exit__(None, None, None)
-                ctx.stretch_passes = stretch
-                ctx.first_traced = first_traced
-                ctx.trace_data = prof
+                ctx.traced_passes += list(range(first_traced, passes))
+                data = load_stretch(prof)
                 prof = None
+                ctx.trace_clock.append(data.clock_ratio if data is not None else {})
+                if data is None or data.complete or len(ctx.trace_clock) == TRACE_ATTEMPTS:
+                    ctx.stretch_spans = snapshot
+                    ctx.stretch_passes = stretch
+                    ctx.first_traced = first_traced
+                    ctx.trace_data = data
+                else:
+                    print(f"perfbench: the trace of passes {first_traced + 1}-{passes} did not "
+                          f"keep the card's clock ({data.clock_ratio}); tracing again",
+                          file=sys.stderr, flush=True)
+                    first_traced = None
             pass_s.append(time.perf_counter() - t_last)
             t_last = time.perf_counter()
             if t_last - t0 >= seconds and (not stretch or ctx.stretch_passes):
@@ -257,10 +291,6 @@ def run(root: str, workload: str, seed: int, seconds: float, trace: bool,
             peak = max(torch.cuda.max_memory_allocated(d) for d in ctx.card_indices)
         if ctx.spans is not None:
             ctx.spans.uninstall()
-        if ctx.trace_data is not None:
-            p = ctx.trace_data
-            # a CPU run (tests) has no device trace to read
-            ctx.trace_data = tr.load(p.out_path, p.marks) if ctx.device.type == "cuda" else None
 
         judged = route.judge(ctx, state)
         del state
@@ -300,6 +330,8 @@ def _result(ctx: Ctx, cell: Cell, judged: Dict, setup_s: float, peak: int, log) 
            "attempted": ctx.window_passes * ctx.tiles_per_pass,
            "failed": int(v["failed"]),
            "metrics": metrics, "device": dev}
+    if ctx.trace:
+        judged.setdefault("notes", {})["trace_clock"] = ctx.trace_clock
     if ctx.trace and ctx.trace_data is not None:
         t = ctx.trace_data
         dev["busy_s"] = tr.busy_s(t, ctx.card_indices)

@@ -11,6 +11,13 @@ from . import trace as tr
 from .spans import thread_seconds
 
 
+def device_trace(ctx) -> Optional[tr.Trace]:
+    """The stretch's device trace where it kept the card's clock, else
+    None: a trace that did not reads every device time short."""
+    t = ctx.trace_data
+    return t if t is not None and t.complete else None
+
+
 def forwards(ctx) -> List[int]:
     """Batch size of every engine forward in the traced stretch."""
     return [s["batch"] for s in ctx.stretch_spans if s["name"] == "forward_on"]
@@ -23,7 +30,7 @@ def stretch_tiles(ctx) -> int:
 def conv_roofline(ctx) -> Optional[float]:
     """Sum over the stretch's conv launches of each launch's bound, over the
     device time of the conv kernels, in %."""
-    t = ctx.trace_data
+    t = device_trace(ctx)
     fw = forwards(ctx)
     if t is None or not fw:
         return None
@@ -40,7 +47,7 @@ def conv_roofline(ctx) -> Optional[float]:
 def other_ms_per_tile(ctx) -> Optional[float]:
     """Device time of everything but the conv kernels, per tile of the
     configuration, in ms."""
-    t = ctx.trace_data
+    t = device_trace(ctx)
     if t is None or not stretch_tiles(ctx):
         return None
     conv = {id(e) for e in tr.matching(t, frozen.CONV_KERNELS)}
@@ -51,12 +58,11 @@ def other_ms_per_tile(ctx) -> Optional[float]:
 def step_mfu(ctx) -> Optional[float]:
     """The configuration's U-Net FLOPs at the tile-plus-halo input, times its
     tiles per pass, over the time of the window's untraced passes and the
-    peak of the cell's cards, in %. The traced passes, which carry the
-    profiler's cost, are left out."""
+    peak of the cell's cards, in %. The passes of every traced stretch,
+    which carry the profiler's cost, are left out."""
     if ctx.device.type != "cuda":
         return None
-    traced = range(ctx.first_traced, ctx.first_traced + ctx.stretch_passes) \
-        if ctx.first_traced is not None else range(0)
+    traced = set(ctx.traced_passes)
     untraced = [s for i, s in enumerate(ctx.pass_seconds) if i not in traced]
     if not untraced or sum(untraced) <= 0:
         return None
@@ -65,7 +71,7 @@ def step_mfu(ctx) -> Optional[float]:
 
 
 def idle_share(ctx) -> Optional[float]:
-    t = ctx.trace_data
+    t = device_trace(ctx)
     if t is None:
         return None
     return tr.idle_share(t, ctx.card_indices)

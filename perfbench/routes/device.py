@@ -55,7 +55,10 @@ def setup(ctx):
 
 
 def _volume(state, p: int) -> torch.Tensor:
-    return torch.roll(state["base"], shifts=p, dims=0)
+    # shifted by p along x; past the volume's extent the shift wraps to 1 and
+    # never to 0, so no window pass gets the warm-up pass's input back
+    x = state["base"].shape[0]
+    return torch.roll(state["base"], shifts=(p - 1) % (x - 1) + 1 if p else 0, dims=0)
 
 
 def run_pass(ctx, state, p: int) -> None:

@@ -9,6 +9,7 @@ unbroken comes out correct.
 import pytest
 import torch
 
+from _perfbench_names import CELLS
 from perfbench.lib import harness
 
 
@@ -26,8 +27,7 @@ def run(root, small):
     return go
 
 
-@pytest.mark.parametrize("workload", ["syntype.device", "organelles.store",
-                                      "syntype.device.mesh4"])
+@pytest.mark.parametrize("workload", CELLS + ["syntype.device.mesh4"])
 def test_sound_run_is_correct(run, workload):
     r = run(workload)
     assert r["correct"] and r["failed"] == 0, r["limits"]
@@ -49,6 +49,19 @@ def test_stale_output_device(run, monkeypatch):
 
     monkeypatch.setattr(dense.ResidentDensePredictor, "predict_volume_packed", stale)
     assert not run("syntype.device")["correct"]
+
+
+def test_no_window_pass_gets_the_warm_up_input(root):
+    """The device route's shift wraps past the volume's x extent without
+    coming back to the warm-up pass's 0, so an output kept from the warm-up
+    never matches a window pass's input (a window of 72 passes did at the
+    small shapes' 72 voxels)."""
+    route = harness.Cell(root, "syntype.device").route
+    state = {"base": torch.arange(5 * 2 * 2).reshape(5, 2, 2)}
+    assert torch.equal(route._volume(state, 0), state["base"])
+    for p in range(1, 30):
+        assert not torch.equal(route._volume(state, p), state["base"]), p
+    assert torch.equal(route._volume(state, 3), torch.roll(state["base"], 3, 0))
 
 
 def test_stale_output_store(run, monkeypatch):

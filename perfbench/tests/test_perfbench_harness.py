@@ -11,6 +11,7 @@ import sys
 
 import pytest
 
+from _perfbench_names import BENCH, CELLS, CONFIGS
 from perfbench.lib import frozen, harness, readers
 from perfbench.lib import trace as tr
 
@@ -18,17 +19,8 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
 
 
-def _bench(root):
-    with open(os.path.join(root, "BENCHMARK.json")) as f:
-        return json.load(f)
-
-
-def _cells(root):
-    return [w["name"] for w in _bench(root)["workloads"]]
-
-
-def test_benchmark_keys_names_and_units(root):
-    b = _bench(root)
+def test_benchmark_keys_names_and_units():
+    b = BENCH
     assert set(b) == {"command", "paths", "run_seconds", "configs", "workloads", "end_to_end",
                       "per_layer"}
     assert b["paths"] == ["perfbench"] and b["command"][1] == "perfbench/run.py"
@@ -49,16 +41,19 @@ def test_benchmark_keys_names_and_units(root):
     e2e = {m["name"] for m in b["end_to_end"]}
     for m in b["per_layer"]:
         assert m["moves"] in e2e
+    for m in metrics:
+        assert set(m.get("workloads", [])) <= set(CELLS), m
 
 
-@pytest.mark.parametrize("workload", ["syntype.device", "organelles.store", "organelles.device"])
+@pytest.mark.parametrize("workload", CELLS)
 def test_cell_resolves_its_files(root, workload):
-    assert workload in _cells(root)
     cell = harness.Cell(root, workload)
     for attr in ("SPANS", "setup", "run_pass", "judge"):
         assert hasattr(cell.route, attr)
     assert cell.arch["features"] and cell.config["mapping"]
-    assert cell.rate_metric in {m["name"] for m in cell.end_to_end()}
+    # the rate is an end-to-end metric that lists the cell
+    rate = {m["name"]: m for m in BENCH["end_to_end"]}[cell.rate_metric]
+    assert workload in rate["workloads"]
     layers = cell.per_layer()
     assert layers
     for m in layers:
@@ -66,12 +61,13 @@ def test_cell_resolves_its_files(root, workload):
     assert set(cell.limits) >= {"mean_abs_lsb", "max_abs_lsb"}
 
 
-@pytest.mark.parametrize("name", ["syntype", "organelles"])
+@pytest.mark.parametrize("name", CONFIGS)
 def test_frozen_flops_equal_the_programs(root, name):
     from syconn_tpu_torch.models.unet3d import UNet3D
     from syconn_tpu_torch.models.unet_engine import unet_flops
 
-    with open(os.path.join(root, "perfbench", "configs", f"{name}.json")) as f:
+    entry = {c["name"]: c for c in BENCH["configs"]}[name]
+    with open(os.path.join(root, entry["file"])) as f:
         cfg = json.load(f)
     a = cfg["arch"]
     model = UNet3D(features=a["features"], strides=a["strides"], patch=a["patch"],
@@ -129,7 +125,7 @@ class _Ctx:
         self.card_indices, self.n_cards = [0], 1
         self.window_passes, self.window_seconds = 4, 2.4
         # the second pass is the traced one, slowed by the profiler
-        self.pass_seconds, self.first_traced = [0.5, 0.9, 0.5, 0.5], 1
+        self.pass_seconds, self.traced_passes = [0.5, 0.9, 0.5, 0.5], [1]
         self.device = torch.device("cuda", 0)
         self.voxels_per_pass = 10 ** 9
 

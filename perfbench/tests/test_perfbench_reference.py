@@ -5,6 +5,7 @@ import numpy as np
 import pytest
 import torch
 
+from _perfbench_names import CELLS
 from perfbench.lib import harness, inputs
 from perfbench.reference import dense as ref_dense
 from perfbench.reference import unet as ref_unet
@@ -100,7 +101,7 @@ def test_control_fails_and_the_program_passes_at_full_width(root, workload):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("workload", ["syntype.device", "organelles.store", "organelles.device"])
+@pytest.mark.parametrize("workload", CELLS)
 def test_control_fails_at_the_cells_own_size(root, workload, card):
     from perfbench import calibrate
 
