@@ -24,7 +24,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def reading(cell, seed: int, control: bool, device: str) -> dict:
     import torch
 
-    from perfbench.lib import harness, inputs
+    from perfbench.lib import harness
 
     if device == "cuda":
         devices = [torch.device("cuda", i) for i in range(cell.chips)]
@@ -35,8 +35,7 @@ def reading(cell, seed: int, control: bool, device: str) -> dict:
     os.makedirs(work)
     try:
         ctx = harness.Ctx(cell, seed, 0.0, False, devices, work)
-        ctx.params = inputs.make_params(ctx.arch, seed, ctx.device)
-        ctx.params_host = inputs.host_tree(ctx.params)
+        ctx.params = ctx.family.make_params(ctx.arch, seed, ctx.device)
         state = cell.route.setup(ctx)
         t0 = time.perf_counter()
         cell.route.run_pass(ctx, state, 1)

@@ -6,6 +6,9 @@ per-layer metric lives in a file of its own, found by the name that
 ``BENCHMARK.json`` gives:
 
 * ``perfbench/configs/<config>.json`` (the entry's ``file``),
+* ``perfbench/families/<family>.py`` (the configuration's ``family``,
+  ``unet3d`` where it names none: ``make_params``, ``program_model``,
+  ``reference_forward``, ``flops``, ``conv_launches``, ``CONV_KERNELS``),
 * ``perfbench/traffic/<traffic>.json`` (names its ``route``),
 * ``perfbench/routes/<route>.py`` (``SPANS``, ``setup``, ``run_pass``,
   ``judge``),
@@ -27,6 +30,9 @@ from typing import Dict, List, Optional
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BENCH_DIR = os.path.dirname(HERE)
+
+# the model family of a configuration that names none
+DEFAULT_FAMILY = "unet3d"
 
 # top-level module names that must not be loaded in a run's process
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "syconn_tpu")
@@ -72,6 +78,12 @@ class Cell:
         self.traffic = dict(self.traffic, **ov.get("traffic", {}))
         self.route = load_module(os.path.join(BENCH_DIR, "routes", self.traffic["route"] + ".py"),
                                  "perfbench_route_" + _safe(self.traffic["route"]))
+        family = self.config.get("family", DEFAULT_FAMILY)
+        path = os.path.join(BENCH_DIR, "families", family + ".py")
+        if not os.path.isfile(path):
+            raise ValueError(f"configuration {self.entry['config']!r} names the model family "
+                             f"{family!r}, whose file {os.path.relpath(path, root)} does not exist")
+        self.family = load_module(path, "perfbench_family_" + _safe(family))
         self.chips = int(ov.get("chips", self.entry["chips"]))
         # a rate that no end-to-end entry lists for the cell would be left
         # out of its result line, and the run would report set-up alone
@@ -110,12 +122,12 @@ class Ctx:
     def __init__(self, cell: Cell, seed: int, seconds: float, trace: bool, devices, work: str):
         self.cell = cell
         self.config, self.traffic, self.arch = cell.config, cell.traffic, cell.arch
+        self.family = cell.family
         self.seed, self.seconds, self.trace = int(seed), float(seconds), bool(trace)
         self.devices = list(devices)
         self.device = self.devices[0]
         self.work = work
-        self.params = None          # flax-layout device tensors (the reference reads these)
-        self.params_host = None     # the same as numpy (the program's argument)
+        self.params = None          # the family's weights on the device (the reference reads these)
         self.spans = None
         # filled in as the run goes
         self.trace_data = None
@@ -127,6 +139,11 @@ class Ctx:
         self.window_passes = 0
         self.window_seconds = 0.0
         self.pass_seconds: List[float] = []
+
+    def reference(self, window, precision: str = "f32"):
+        """The family's plain forward of one input window with the run's
+        weights: uint8 probabilities (C, X, Y, Z)."""
+        return self.family.reference_forward(self.arch, self.params, window, precision)
 
     @property
     def n_cards(self) -> int:
@@ -211,7 +228,7 @@ def run(root: str, workload: str, seed: int, seconds: float, trace: bool,
     t_start = time.perf_counter() if t_start is None else t_start
     import torch
 
-    from . import inputs, trace as tr
+    from . import trace as tr
     from .spans import Spans
 
     log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
@@ -226,8 +243,7 @@ def run(root: str, workload: str, seed: int, seconds: float, trace: bool,
     ctx = Ctx(cell, seed, seconds, trace, devices, work)
     route = cell.route
     try:
-        ctx.params = inputs.make_params(ctx.arch, seed, ctx.device)
-        ctx.params_host = inputs.host_tree(ctx.params)
+        ctx.params = ctx.family.make_params(ctx.arch, seed, ctx.device)
         state = route.setup(ctx)
         if trace:
             ctx.spans = Spans()

@@ -61,18 +61,19 @@ def sample_offsets(shape, tile, k: int, seed: int) -> List[tuple]:
     return [offs[i] for i in sorted(pick)] + [offs[-1]]
 
 
-def compare_tiles(arch: dict, params: dict, vol: torch.Tensor, tile, halo,
+def compare_tiles(reference: Callable, vol: torch.Tensor, tile, halo,
                   mapping: Dict[str, int], offsets, program_tile: Callable,
                   control: bool = False, keep: Optional[Callable] = None) -> Tally:
     """Tally |program - reference| over the tiles at ``offsets``.
-    ``program_tile(offset, extent)`` gives {map name: uint8 (ex, ey, ez)}
-    or None when missing; ``keep(offset, extent, name, ref_u8, prog_u8)``
-    sees every compared pair (for the mag-2 level)."""
+    ``reference(window, precision)`` is the family's plain forward (uint8
+    (C, X, Y, Z) of a window); ``program_tile(offset, extent)`` gives {map
+    name: uint8 (ex, ey, ez)} or None when missing; ``keep(offset, extent,
+    name, ref_u8, prog_u8)`` sees every compared pair (for the mag-2 level)."""
     t = Tally()
     for off in offsets:
-        ext, ref = ref_dense.predict_tile(arch, params, vol, off, tile, halo, "f32")
+        ext, ref = ref_dense.predict_tile(reference, vol, off, tile, halo, "f32")
         if control:
-            _, low = ref_dense.predict_tile(arch, params, vol, off, tile, halo, "fp8")
+            _, low = ref_dense.predict_tile(reference, vol, off, tile, halo, "fp8")
             prog = {n: low[c] for n, c in mapping.items()}
         else:
             prog = program_tile(off, ext)

@@ -35,8 +35,8 @@ def conv_roofline(ctx) -> Optional[float]:
     if t is None or not fw:
         return None
     win = ctx.window_shape
-    launches = [frozen.conv_launches(ctx.arch, [b] + win) for b in fw]
-    convs = tr.matching(t, frozen.CONV_KERNELS)
+    launches = [ctx.family.conv_launches(ctx.arch, [b] + win) for b in fw]
+    convs = tr.matching(t, ctx.family.CONV_KERNELS)
     if len(convs) != sum(len(x) for x in launches):
         return None
     bound = sum(frozen.launch_bound_s(x) for ls in launches for x in ls)
@@ -50,23 +50,24 @@ def other_ms_per_tile(ctx) -> Optional[float]:
     t = device_trace(ctx)
     if t is None or not stretch_tiles(ctx):
         return None
-    conv = {id(e) for e in tr.matching(t, frozen.CONV_KERNELS)}
+    conv = {id(e) for e in tr.matching(t, ctx.family.CONV_KERNELS)}
     other = sum(e["dur"] for e in t.events if id(e) not in conv)
     return other / 1e3 / stretch_tiles(ctx)
 
 
 def step_mfu(ctx) -> Optional[float]:
-    """The configuration's U-Net FLOPs at the tile-plus-halo input, times its
-    tiles per pass, over the time of the window's untraced passes and the
-    peak of the cell's cards, in %. The passes of every traced stretch,
-    which carry the profiler's cost, are left out."""
+    """The configuration's forward FLOPs (its family's count) at the
+    tile-plus-halo input, times its tiles per pass, over the time of the
+    window's untraced passes and the peak of the cell's cards, in %. The
+    passes of every traced stretch, which carry the profiler's cost, are
+    left out."""
     if ctx.device.type != "cuda":
         return None
     traced = set(ctx.traced_passes)
     untraced = [s for i, s in enumerate(ctx.pass_seconds) if i not in traced]
     if not untraced or sum(untraced) <= 0:
         return None
-    flops = frozen.unet_flops(ctx.arch, [1] + ctx.window_shape) * ctx.tiles_per_pass
+    flops = ctx.family.flops(ctx.arch, [1] + ctx.window_shape) * ctx.tiles_per_pass
     return 100.0 * flops * len(untraced) / sum(untraced) / (frozen.PEAK_FLOPS * ctx.n_cards)
 
 

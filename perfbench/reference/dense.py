@@ -10,11 +10,9 @@ edge-padded to even extents.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Callable, Sequence, Tuple
 
 import torch
-
-from . import unet
 
 
 def grid_of(shape: Sequence[int], tile: Sequence[int]) -> Tuple[int, int, int]:
@@ -43,19 +41,18 @@ def window(vol: torch.Tensor, offset, tile, halo) -> torch.Tensor:
 
 
 @torch.no_grad()
-def predict_tile(arch: dict, params: dict, vol: torch.Tensor, offset, tile, halo,
+def predict_tile(forward: Callable, vol: torch.Tensor, offset, tile, halo,
                  precision: str = "f32") -> Tuple[Tuple[int, ...], torch.Tensor]:
     """One tile -> (its extent inside the volume, uint8 probabilities
-    (C, ex, ey, ez))."""
-    unet.set_precision()
-    patch = [int(p) for p in arch["patch"]]
-    lg = unet.logits_packed(arch, params, window(vol, offset, tile, halo), precision)
-    hp = [int(h) // p for h, p in zip(halo, patch)]
-    tp = [int(t) // p for t, p in zip(tile, patch)]
-    lg = lg[:, hp[0]:hp[0] + tp[0], hp[1]:hp[1] + tp[1], hp[2]:hp[2] + tp[2]]
-    probs = unet.probs_u8(arch, lg)
+    (C, ex, ey, ez)). ``forward(window, precision)`` is the model family's
+    plain forward: the window (X, Y, Z) uint8 -> uint8 (C, X, Y, Z), in
+    float32 with TF32 off."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    probs = forward(window(vol, offset, tile, halo), precision)
+    lo = [int(h) for h in halo]
     ext = tuple(min(int(t), int(n) - int(o)) for t, n, o in zip(tile, vol.shape, offset))
-    return ext, probs[:, :ext[0], :ext[1], :ext[2]]
+    return ext, probs[:, lo[0]:lo[0] + ext[0], lo[1]:lo[1] + ext[1], lo[2]:lo[2] + ext[2]]
 
 
 def mag2_tile(u8: torch.Tensor) -> torch.Tensor:

@@ -38,18 +38,15 @@ SPANS = [
 
 
 def setup(ctx):
-    from syconn_tpu_torch.models.unet3d import UNet3D
     from syconn_tpu_torch.parallel.device import get_device_mesh
 
-    a = ctx.arch
-    model = UNet3D(features=a["features"], strides=a["strides"], patch=a["patch"],
-                   n_classes=a["n_classes"])
+    model, params = ctx.family.program_model(ctx.arch, ctx.params, ctx.device)
     mesh_n = int(ctx.traffic.get("data_mesh", 1))
     mesh = None
     if mesh_n > 1:
         mesh = get_device_mesh(mesh_n, axis_names=("data",), devices=ctx.devices[:mesh_n])
     base = inputs.em_volume(ctx.volume, ctx.seed, ctx.device)
-    return dict(model=model, mesh=mesh, base=base, shift=None,
+    return dict(model=model, params=params, mesh=mesh, base=base, shift=None,
                 raw=os.path.join(ctx.work, "raw"),
                 maps={n: os.path.join(ctx.work, n) for n in ctx.mapping})
 
@@ -70,7 +67,7 @@ def run_pass(ctx, state, p: int) -> None:
     if not resident.put(state["raw"], "raw", _volume(state, p), mag=1, device=ctx.device):
         raise RuntimeError("io.resident refused the volume")
     vol = resident.get(state["raw"], "raw", 1)
-    pred = ResidentDensePredictor(state["model"], ctx.params_host, tile_shape=ctx.tile,
+    pred = ResidentDensePredictor(state["model"], state["params"], tile_shape=ctx.tile,
                                   halo=ctx.halo, mode="probs", device=ctx.device,
                                   mesh=state["mesh"])
     packed, grid = pred.predict_volume_packed(vol)
@@ -103,7 +100,7 @@ def judge(ctx, state, control: bool = False):
 
     offsets = jd.sample_offsets(ctx.volume, ctx.tile, int(ctx.traffic["judge_tiles"]),
                                 ctx.seed)
-    t = jd.compare_tiles(ctx.arch, ctx.params, vol, ctx.tile, ctx.halo, ctx.mapping,
-                         offsets, program_tile, control=control)
+    t = jd.compare_tiles(ctx.reference, vol, ctx.tile, ctx.halo, ctx.mapping, offsets,
+                         program_tile, control=control)
     return dict(numbers=t.numbers(), missing=missing, tile_max=t.tile_max,
                 notes={"shift": state["shift"]})

@@ -43,11 +43,8 @@ SPANS = [
 def setup(ctx):
     from syconn_tpu_torch.exec import exec_dense_prediction
     from syconn_tpu_torch.io.chunked import ChunkedVolume
-    from syconn_tpu_torch.models.unet3d import UNet3D
 
-    a = ctx.arch
-    model = UNet3D(features=a["features"], strides=a["strides"], patch=a["patch"],
-                   n_classes=a["n_classes"])
+    model, params = ctx.family.program_model(ctx.arch, ctx.params, ctx.device)
     vol = inputs.em_volume(ctx.volume, ctx.seed, ctx.device)
     raw = os.path.join(ctx.work, "raw")
     host = vol.cpu().numpy()
@@ -61,7 +58,7 @@ def setup(ctx):
         ChunkedVolume.create(warm_raw, scale=ctx.config["scale"], boundary=warm,
                              chunk_shape=ctx.tile).save_raw(
             host[:warm[0], :warm[1], :warm[2]].copy())
-    return dict(model=model, vol=vol, raw=raw, warm_raw=warm_raw,
+    return dict(model=model, params=params, vol=vol, raw=raw, warm_raw=warm_raw,
                 entry=getattr(exec_dense_prediction, ctx.config["step1_entry"]),
                 targets={n: os.path.join(ctx.work, n) for n in ctx.mapping}, stats=None)
 
@@ -75,7 +72,7 @@ def run_pass(ctx, state, p: int) -> None:
     state["stats"] = state["entry"](
         kd_path=state["warm_raw"] if p == 0 else state["raw"],
         target_paths=dict(state["targets"]),
-        model=(state["model"], ctx.params_host), tile_shape=ctx.tile, halo=ctx.halo,
+        model=(state["model"], state["params"]), tile_shape=ctx.tile, halo=ctx.halo,
         show_progress=False, device=ctx.device)
 
 
@@ -108,8 +105,8 @@ def judge(ctx, state, control: bool = False):
 
     # every tile: the mag-2 level is compared whole
     offsets = ref_dense.tile_offsets(ctx.volume, ctx.tile)
-    t = jd.compare_tiles(ctx.arch, ctx.params, state["vol"], ctx.tile, ctx.halo, ctx.mapping,
-                         offsets, program_tile, control=control, keep=keep)
+    t = jd.compare_tiles(ctx.reference, state["vol"], ctx.tile, ctx.halo, ctx.mapping, offsets,
+                         program_tile, control=control, keep=keep)
     numbers = t.numbers()
     if control or not missing:
         prog2 = low2 if control else maps[2]

@@ -27,6 +27,15 @@ def root():
 
 
 @pytest.fixture()
+def unet3d():
+    """The ``unet3d`` model family's module."""
+    from perfbench.lib import harness
+
+    return harness.load_module(os.path.join(harness.BENCH_DIR, "families", "unet3d.py"),
+                               "perfbench_family_unet3d")
+
+
+@pytest.fixture()
 def card():
     import torch
 

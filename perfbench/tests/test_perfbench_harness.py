@@ -11,7 +11,7 @@ import sys
 
 import pytest
 
-from _perfbench_names import BENCH, CELLS, CONFIGS
+from _perfbench_names import BENCH, CELLS, UNET3D_CONFIGS
 from perfbench.lib import frozen, harness, readers
 from perfbench.lib import trace as tr
 
@@ -50,7 +50,10 @@ def test_cell_resolves_its_files(root, workload):
     cell = harness.Cell(root, workload)
     for attr in ("SPANS", "setup", "run_pass", "judge"):
         assert hasattr(cell.route, attr)
-    assert cell.arch["features"] and cell.config["mapping"]
+    assert cell.arch and cell.config["mapping"]
+    for attr in ("make_params", "program_model", "reference_forward", "flops", "conv_launches"):
+        assert callable(getattr(cell.family, attr))
+    assert cell.family.CONV_KERNELS
     # the rate is an end-to-end metric that lists the cell
     rate = {m["name"]: m for m in BENCH["end_to_end"]}[cell.rate_metric]
     assert workload in rate["workloads"]
@@ -61,7 +64,7 @@ def test_cell_resolves_its_files(root, workload):
     assert set(cell.limits) >= {"mean_abs_lsb", "max_abs_lsb"}
 
 
-@pytest.mark.parametrize("name", CONFIGS)
+@pytest.mark.parametrize("name", UNET3D_CONFIGS)
 def test_frozen_flops_equal_the_programs(root, name):
     from syconn_tpu_torch.models.unet3d import UNet3D
     from syconn_tpu_torch.models.unet_engine import unet_flops
@@ -113,10 +116,11 @@ class _Ctx:
     """What the readers see, for a synthetic stretch of one pass of one
     forward of batch 1."""
 
-    def __init__(self, trace):
+    def __init__(self, trace, family):
         import torch
 
         self.trace_data = trace
+        self.family = family
         self.arch = {"features": [32, 64], "strides": [[2, 2, 2]], "patch": [2, 2, 2],
                      "n_classes": 4}
         self.window_shape = [320, 320, 160]
@@ -130,13 +134,13 @@ class _Ctx:
         self.voxels_per_pass = 10 ** 9
 
 
-def test_roofline_and_per_tile_arithmetic():
+def test_roofline_and_per_tile_arithmetic(unet3d):
     a = {"features": [32, 64], "strides": [[2, 2, 2]], "patch": [2, 2, 2], "n_classes": 4}
     launches = frozen.conv_launches(a, [1, 320, 320, 160])
     ev = [dict(name="conv3d_wgmma_kernel", cat="kernel", ts=float(i), dur=1.0, device=0)
           for i in range(len(launches))]
     ev.append(dict(name="softmax", cat="kernel", ts=50.0, dur=3.0, device=0))
-    ctx = _Ctx(tr.Trace(ev, 0.0, 100.0, 0))
+    ctx = _Ctx(tr.Trace(ev, 0.0, 100.0, 0), unet3d)
     bound = sum(frozen.launch_bound_s(x) for x in launches)
     assert readers.conv_roofline(ctx) == pytest.approx(100.0 * bound / (len(launches) * 1e-6))
     assert readers.other_ms_per_tile(ctx) == pytest.approx(3e-3 / 2)

@@ -42,7 +42,7 @@ def _scratch_root(tmp_path, monkeypatch, listed=True, names_shared=True):
     if listed:
         bench["end_to_end"].insert(-1, dict(SHARED_RATE, workloads=[NEW_CELL]))
     pb = tmp_path / "perfbench"
-    for sub in ("traffic", "routes", "metrics", "limits"):
+    for sub in ("traffic", "routes", "metrics", "limits", "families"):
         shutil.copytree(os.path.join(harness.BENCH_DIR, sub), pb / sub)
     (pb / "configs").mkdir()
     shutil.copy(os.path.join(harness.BENCH_DIR, "configs", "organelles.json"),

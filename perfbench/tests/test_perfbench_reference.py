@@ -44,7 +44,7 @@ def test_reference_logits_agree_with_the_port_at_a_tiny_width(arch):
     assert float((low - ref).abs().mean()) > 5 * float((ref - port).abs().mean())
 
 
-def test_reference_tiles_agree_with_the_ported_predictor():
+def test_reference_tiles_agree_with_the_ported_predictor(unet3d):
     from syconn_tpu_torch.inference.dense import ResidentDensePredictor
     from syconn_tpu_torch.models.unet3d import UNet3D
 
@@ -57,7 +57,8 @@ def test_reference_tiles_agree_with_the_ported_predictor():
     packed, grid = pred.predict_volume_packed(vol)
     gaps = []
     for off in ref_dense.tile_offsets(vol.shape, tile):
-        ext, ref = ref_dense.predict_tile(TINY, params, vol, off, tile, halo)
+        ext, ref = ref_dense.predict_tile(
+            lambda w, p: unet3d.reference_forward(TINY, params, w, p), vol, off, tile, halo)
         for ch in range(3):
             port = pred.class_volume_device(packed, grid, ch, tuple(vol.shape))
             sl = tuple(slice(o, o + e) for o, e in zip(off, ext))

@@ -45,8 +45,9 @@ def test_a_trace_without_device_marks_is_taken_as_it_is(tmp_path):
 
 
 class _Ctx:
-    def __init__(self, trace):
+    def __init__(self, trace, family):
         self.trace_data = trace
+        self.family = family
         self.stretch_passes, self.tiles_per_pass = 1, 2
         self.card_indices, self.n_cards = [0], 1
         self.arch = {"features": [32, 64], "strides": [[2, 2, 2]], "patch": [2, 2, 2],
@@ -55,9 +56,9 @@ class _Ctx:
         self.device = torch.device("cuda", 0)
 
 
-def test_device_time_readers_are_silent_on_an_incomplete_trace():
+def test_device_time_readers_are_silent_on_an_incomplete_trace(unet3d):
     ev = [dict(name="softmax", cat="kernel", ts=10.0, dur=30.0, device=0)]
-    ctx = _Ctx(tr.Trace(ev, 0.0, 100.0, 0, {0: 1.001}))
+    ctx = _Ctx(tr.Trace(ev, 0.0, 100.0, 0, {0: 1.001}), unet3d)
     assert readers.idle_share(ctx) == pytest.approx(70.0)
     assert readers.other_ms_per_tile(ctx) == pytest.approx(30e-3 / 2)
     ctx.trace_data = tr.Trace(ev, 0.0, 100.0, 0, {0: 0.48})
@@ -93,12 +94,12 @@ def test_a_stretch_that_lost_the_clock_is_traced_again(root, small, monkeypatch,
         assert "conv3d_roofline.device.organelles" not in r["metrics"]
 
 
-def test_step_mfu_leaves_out_every_traced_stretch():
+def test_step_mfu_leaves_out_every_traced_stretch(unet3d):
     """Passes 1 and 3 were traced (a stretch of one pass traced again):
     both are left out of the whole step's share."""
     from perfbench.lib import frozen
 
-    ctx = _Ctx(None)
+    ctx = _Ctx(None, unet3d)
     ctx.pass_seconds, ctx.traced_passes = [0.5, 0.9, 0.5, 0.8, 0.5], [1, 3]
     flops = frozen.unet_flops(ctx.arch, [1] + ctx.window_shape) * 2
     assert readers.step_mfu(ctx) == pytest.approx(100.0 * flops * 3 / 1.5 / frozen.PEAK_FLOPS)
