@@ -20,13 +20,21 @@ Phases, each failing the run on error:
   3. the slice: ``predict_synapsetype`` (probs) and ``predict_myelin``
      (masks) over a seeded 512x512x256 volume in the port's chunk store,
      checking that every kernel of the path was launched the expected
-     number of times, that the outputs are well-formed, and that the
-     kernel path agrees with the plain CPU path on a small input;
+     number of times (the mag-2 pooling kernel once a syntype dispatch but
+     the probe, never for the masks), that the outputs are well-formed, that
+     the syntype maps at mag 2 equal the host pooling of those at mag 1, and
+     that the kernel path agrees with the plain CPU path on a small input;
   4. the contact kernel against its plain version (all integers: equal) at
      the deployment chunk (256, 256, 128) + halo (6, 6, 3), tile (32, 32),
      K = 32, stencil (13, 13, 7), at an awkward shape with overflowing
      columns, and at the deployment shape on dense labels (~22 live
      candidates a column);
+  4b. the mag-2 pooling kernel (``ops/csrc/pool.cu``) against its plain
+     version on the card (equal to the byte) at both configurations' tiles,
+     (256, 256, 128) with patch (2, 2, 2) and 3 classes pooled and with
+     (4, 4, 2) and 2, odd crops and a padding row included, each crop and
+     class against the chunk store's host pooling; kernel, plain-version
+     and library times and the bytes bound of one tile;
   5. the contact slice: ``run_contact_extraction`` over a seeded
      512x512x256 label volume, streaming (``CsDispatcher``, the CUDA kernel)
      and from the device-resident store; kernel launches equal the chunks,
@@ -36,7 +44,10 @@ Phases, each failing the run on error:
      the streaming path): ``predict_cellorganelles`` (the organelles U-Net,
      whose conv shapes phase 2 checks too) over the slice's raw volume,
      streamed and then resident (``ResidentDensePredictor``), outputs on disk
-     equal and the registered ``mi``/``vc`` maps equal to disk; ``kd_init``
+     equal at mags 1 and 2 (the stream route pools mag 2 on the card, one
+     launch a dispatch but the probe, equal to the host pooling of its mag 1;
+     the resident route on the host) and the registered ``mi``/``vc`` maps
+     equal to disk; ``kd_init``
      for ``mi`` and ``vc`` on seeded blob probability maps, resident
      (``ResidentSegmenter``) and streaming through the device chain on the
      full volume, streaming and on the host (scipy) on a 256x256x128
@@ -191,6 +202,17 @@ CONTACT_SHAPES = [
     # deployment stencil, tile and K on labels dense enough for ~22 live
     # candidates per column (2 of 64 columns overflow)
     ("dense", (268, 268, 134), (13, 13, 7), (32, 32), 32, (24, 24, 40), False),
+]
+# mag-2 pooling of the class maps from the packed head output (no TPU kernel:
+# the JAX package pools each tile on the host, syconn_tpu/io/chunked.py,
+# ``_save_multi_mag``), at the dense step's tile: (configuration, patch,
+# classes of the head, classes pooled, batch rows' crop extents: a whole tile,
+# an odd crop, a row that only pads the batch)
+POOL_SOURCE = "syconn_tpu_torch/ops/csrc/pool.cu"
+POOL_TILE = (256, 256, 128)
+POOL_SHAPES = [
+    ("organelles", (2, 2, 2), 4, [1, 2, 3], [(256, 256, 128), (255, 13, 127), (0, 0, 0)]),
+    ("syntype", (4, 4, 2), 3, [1, 2], [(256, 256, 128), (37, 255, 1), (0, 0, 0)]),
 ]
 REPLACES = {
     "conv3x3x3_ln_gelu": "syconn_tpu/ops/conv3d_pallas.py:71",
@@ -527,6 +549,117 @@ def phase_contact_kernels(dev, shapes=None):
     return rows
 
 
+def phase_pool_kernels(dev):
+    """Phase 4b: the mag-2 pooling kernel against its plain version on the
+    card, equal to the byte, at both configurations' tiles (odd crops and a
+    padding row included), and each pooled class of each crop against the
+    chunk store's host pooling; kernel, plain-version and library times and
+    the bytes bound of one whole tile."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from syconn_tpu_torch.io.chunked import ChunkedVolume
+    from syconn_tpu_torch.ops import pool as P
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = []
+    for task, patch, n_cls, classes, extents in POOL_SHAPES:
+        sp = [t // p for t, p in zip(POOL_TILE, patch)]
+        pvox = int(np.prod(patch))
+        x = torch.randint(0, 256, (len(extents), *sp, n_cls * pvox), generator=gen, device=dev,
+                          dtype=torch.uint8)
+        n0 = P.LAUNCHES["pool_mag2"]
+        got = P.pool_mag2(x, extents, patch, n_cls, classes)
+        torch.cuda.synchronize()
+        if P.LAUNCHES["pool_mag2"] != n0 + 1:
+            raise AssertionError(f"pool {task}: {P.LAUNCHES['pool_mag2'] - n0} launches for one call")
+        n_diff = int((got != P.pool_mag2_ref(x, extents, patch, n_cls, classes)).sum())
+        if n_diff:
+            raise AssertionError(f"pool {task}: {n_diff} bytes differ from the plain version")
+        vox = x.cpu().numpy().reshape(len(extents), *sp, n_cls, *patch)
+        vox = vox.transpose(0, 4, 1, 5, 2, 6, 3, 7).reshape(len(extents), n_cls, *POOL_TILE)
+        out = got.cpu().numpy()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_pool_") as tmp:
+            for row, e in enumerate(extents):
+                if min(e) == 0:
+                    if out[row].any():
+                        raise AssertionError(f"pool {task}: a padding row is not zero")
+                    continue
+                h = [-(-v // 2) for v in e]
+                for k, c in enumerate(classes):
+                    store = ChunkedVolume.create(os.path.join(tmp, f"r{row}c{c}"), scale=(1, 1, 1),
+                                                 boundary=POOL_TILE, chunk_shape=POOL_TILE)
+                    store.save_raw(np.ascontiguousarray(vox[row, c, :e[0], :e[1], :e[2]]),
+                                   mags=(2,))
+                    if not np.array_equal(out[row, k, :h[0], :h[1], :h[2]],
+                                          store.load_raw(size=h, mag=2)):
+                        raise AssertionError(f"pool {task}: crop {e} class {c} != the chunk "
+                                             f"store's host pooling")
+        # one whole tile: the kernel, its plain version, and a library yardstick
+        # (avg_pool3d over the pooled classes already unpacked to float16: no
+        # unpacking, edge rule or truncation; timed only, never used)
+        x1, e1 = x[:1].contiguous(), [POOL_TILE]
+        k_ms = cuda_ms(lambda: P.pool_mag2(x1, e1, patch, n_cls, classes))
+        p_ms = cuda_ms(lambda: P.pool_mag2_ref(x1, e1, patch, n_cls, classes), warmup=1, reps=3,
+                       inner=2)
+        lib_in = x1.reshape(1, *sp, n_cls, *patch)[:, :, :, :, classes]
+        lib_in = lib_in.permute(0, 4, 1, 5, 2, 6, 3, 7).reshape(1, len(classes), *POOL_TILE)
+        lib_in = lib_in.to(torch.float16).contiguous()
+        l_ms = cuda_ms(lambda: F.avg_pool3d(lib_in, 2))
+        # the pooled classes' bytes of the packed tile, read once, and the output
+        nbytes = int(np.prod(sp)) * len(classes) * pvox + got[:1].numel()
+        bound = nbytes / PEAK_BYTES * 1e3
+        row = dict(name="pool_mag2", task=task, patch=list(patch), classes=classes,
+                   tile=list(POOL_TILE), extents=[list(e) for e in extents], main_path=True,
+                   max_abs_err=0, kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                   library_note="avg_pool3d on the classes unpacked to float16",
+                   bound_ms=bound, bound_by="bytes", bound_bytes=nbytes,
+                   roofline_pct=100 * bound / k_ms)
+        rows.append(row)
+        log("kernel " + json.dumps(row))
+        del x, x1, got, lib_in
+    return rows
+
+
+def check_pool_launches(what: str, stats: dict, n0: int, card_pool: bool) -> int:
+    """The mag-2 pooling kernel's launches in a ``predict_dense_to_kd`` call
+    (``n0`` before it): one a dispatch but the first-dispatch probe where the
+    stream route writes probability maps at mag 2, else none."""
+    from syconn_tpu_torch.ops import pool as P
+
+    got = P.LAUNCHES["pool_mag2"] - n0
+    want = stats["dispatches"] - 1 if card_pool and stats["route"] == "stream" else 0
+    if got != want:
+        raise AssertionError(f"{what}: pool_mag2 launched {got} times, expected {want} "
+                             f"({stats['dispatches']} dispatches, {stats['route']} route)")
+    return got
+
+
+def check_mag2_is_host_pooling(what: str, path: str, shape, work: str) -> None:
+    """A store's mag-2 map equals the chunk store's host pooling of its own
+    mag-1 map, byte for byte (tiles of even extents, so whole-volume pooling
+    is the tiles')."""
+    import numpy as np
+
+    from syconn_tpu_torch.io.chunked import ChunkedVolume
+
+    vol = ChunkedVolume.open(path)
+    half = [-(-s // 2) for s in shape]
+    ref_path = os.path.join(work, "mag2_ref")
+    ref = ChunkedVolume.create(ref_path, scale=vol.scale, boundary=vol.boundary,
+                               chunk_shape=vol.chunk_shape, codec=vol.codec)
+    try:
+        ref.save_raw(vol.load_raw(size=shape), mags=(2,))
+        n_diff = int((vol.load_raw(size=half, mag=2) != ref.load_raw(size=half, mag=2)).sum())
+    finally:
+        shutil.rmtree(ref_path, ignore_errors=True)
+    if n_diff:
+        raise AssertionError(f"{what}: {n_diff} mag-2 voxels differ from the host pooling of "
+                             f"its mag-1 map")
+    log(f"{what}: mag 2 equals the host pooling of mag 1 ({int(np.prod(half))} voxels)")
+
+
 def make_volume(path: str, shape, seed: int = 0, mean: float = 128.0, std: float = 40.0):
     """Seeded EM-like uint8 volume (smoothed noise) in the port's store."""
     import numpy as np
@@ -583,6 +716,7 @@ def phase_slice(dev, work: str):
 
     from syconn_tpu_torch.exec.exec_dense_prediction import predict_myelin, predict_synapsetype
     from syconn_tpu_torch.io.chunked import ChunkedVolume
+    from syconn_tpu_torch.ops import pool as P
     from syconn_tpu_torch.ops.conv3d import LAUNCHES, reset_launch_counts
 
     shape = (512, 512, 256)
@@ -598,6 +732,7 @@ def phase_slice(dev, work: str):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
+        n_pool = P.LAUNCHES["pool_mag2"]
         if task == "syntype":
             stats = predict_synapsetype(kd_path=kd, target_paths=targets,
                                         tile_shape=(256, 256, 128), halo=(32, 32, 16),
@@ -608,6 +743,7 @@ def phase_slice(dev, work: str):
                                    device=dev, show_progress=False)
         counts = dict(LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
+        pooled = check_pool_launches(task, stats, n_pool, card_pool=task == "syntype")
         for k, per in PER_TILE[task].items():
             want = stats["dispatches"] * per
             if counts[k] <= 0 or counts[k] != want:
@@ -621,7 +757,10 @@ def phase_slice(dev, work: str):
                                  f"range [{out.min()}, {out.max()}]")
         if task == "myelin" and not set(np.unique(out).tolist()) <= {0, 255}:
             raise AssertionError("myelin masks are not 0/255")
-        res = dict(stats, peak_bytes=int(peak), launches=counts,
+        if task == "syntype":
+            for n, path in targets.items():
+                check_mag2_is_host_pooling(f"syntype {n}", path, shape, work)
+        res = dict(stats, peak_bytes=int(peak), launches=dict(counts, pool_mag2=pooled),
                    mean_out=float(out.mean()), output=name)
         results[task] = res
         log(f"slice {task} " + json.dumps(res))
@@ -816,10 +955,12 @@ def phase_slice_organelles(dev, work: str, kd: str, shape=(512, 512, 256)):
     from syconn_tpu_torch.exec.exec_dense_prediction import predict_cellorganelles
     from syconn_tpu_torch.io import resident
     from syconn_tpu_torch.io.chunked import ChunkedVolume
+    from syconn_tpu_torch.ops import pool as P
     from syconn_tpu_torch.ops.conv3d import LAUNCHES, reset_launch_counts
 
     launches = {k: 0 for k in LAUNCHES}
-    outs = {}
+    outs, outs2 = {}, {}
+    half = tuple(-(-s // 2) for s in shape)
     for mode in ("stream", "resident"):
         targets = {c: os.path.join(work, f"org_{mode}_{c}") for c in ("mi", "vc", "sj")}
         if mode == "resident":
@@ -829,6 +970,7 @@ def phase_slice_organelles(dev, work: str, kd: str, shape=(512, 512, 256)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
+        n_pool = P.LAUNCHES["pool_mag2"]
         stats = predict_cellorganelles(kd_path=kd, target_paths=targets,
                                        tile_shape=(256, 256, 128), halo=(32, 32, 16),
                                        device=dev, show_progress=False)
@@ -836,13 +978,20 @@ def phase_slice_organelles(dev, work: str, kd: str, shape=(512, 512, 256)):
         peak = torch.cuda.max_memory_allocated()
         if stats["route"] != mode:
             raise AssertionError(f"organelles {mode}: took the {stats['route']} route")
+        # the stream route pools the maps to mag 2 on the card; the resident one on the host
+        pooled = check_pool_launches(f"organelles {mode}", stats, n_pool, card_pool=True)
         for k, per in PER_TILE["organelles"].items():
             if counts[k] <= 0 or counts[k] != stats["dispatches"] * per:
                 raise AssertionError(f"organelles {mode}: {k} launched {counts[k]} times, "
                                      f"expected {stats['dispatches']} dispatches x {per}")
             launches[k] += counts[k]
         outs[mode] = {c: ChunkedVolume.open(p).load_raw(size=shape) for c, p in targets.items()}
-        line = dict(stats, peak_bytes=int(peak), launches=counts,
+        outs2[mode] = {c: ChunkedVolume.open(p).load_raw(size=half, mag=2)
+                       for c, p in targets.items()}
+        if mode == "stream":
+            for c, p in targets.items():
+                check_mag2_is_host_pooling(f"organelles stream {c}", p, shape, work)
+        line = dict(stats, peak_bytes=int(peak), launches=dict(counts, pool_mag2=pooled),
                     tile_batch=stats.get("tile_batch", 1))
         log(f"slice organelles {mode} " + json.dumps(line))
         if mode == "resident":
@@ -868,6 +1017,14 @@ def phase_slice_organelles(dev, work: str, kd: str, shape=(512, 512, 256)):
     if int(d.max()) > 3 or stable < 0.999:
         raise AssertionError("organelles: streaming and resident outputs differ beyond 3 LSB "
                              "or the argmax budget")
+    # mag 2: the card's pooling (stream) against the host's (resident); the
+    # mean of maps within 3 LSB stays within 3 LSB
+    d2 = max(int(np.abs(outs2["stream"][c].astype(np.int16) - outs2["resident"][c]).max())
+             for c in outs2["stream"])
+    log(f"slice organelles: mag 2 streaming (card pooling) vs resident (host pooling) max "
+        f"|diff| {d2} LSB")
+    if d2 > 3:
+        raise AssertionError("organelles: streaming and resident mag-2 maps differ beyond 3 LSB")
     return res_targets, launches
 
 
@@ -4484,6 +4641,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from syconn_tpu_torch.io import resident
     from syconn_tpu_torch.ops import build
+    from syconn_tpu_torch.ops import pool as P
     from syconn_tpu_torch.utils.device import default_device
 
     t_all = time.perf_counter()
@@ -4513,6 +4671,8 @@ def main() -> int:
     rows = phase_kernels(dev)
     phase_repack(dev)
     contact_rows = phase_contact_kernels(dev)
+    pool_rows = phase_pool_kernels(dev)
+    pool_base = P.LAUNCHES["pool_mag2"]  # the slices' launches are counted from here
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         phase_reference(dev)
@@ -4625,6 +4785,13 @@ def main() -> int:
         launches=contacts["launches"], max_abs_err=max(r["max_abs_err"] for r in contact_rows),
         ms=crow["kernel_ms"], plain_ms=crow["plain_ms"], bound_ms=crow["bound_ms"],
         bound_by=crow["bound_by"], library_ms=None))
+    prow = next(r for r in pool_rows if r["task"] == "organelles")
+    kernels.append(dict(
+        name="pool_mag2", route="cuda", source=POOL_SOURCE, replaces=None,
+        launches=P.LAUNCHES["pool_mag2"] - pool_base,
+        max_abs_err=max(r["max_abs_err"] for r in pool_rows), per="organelles tile, 3 classes",
+        ms=prow["kernel_ms"], plain_ms=prow["plain_ms"], bound_ms=prow["bound_ms"],
+        bound_by=prow["bound_by"], library_ms=prow["library_ms"]))
     log(f"whole run {time.perf_counter() - t_all:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -14,7 +14,11 @@ Execution model:
 * host threads prefetch source tiles and write results;
 * two output modes: ``probs`` (uint8 softmax probabilities) and ``masks``
   (thresholded on the card and bit-packed 1 bit/voxel along the patch
-  voxels before the download, stored as 0/255).
+  voxels before the download, stored as 0/255);
+* probability maps wanted at mag 2 are pooled to it on the card
+  (``ops.pool.pool_mag2``, the chunk store's mean to the byte) and
+  downloaded beside the mag-1 maps (stream route), not pooled by the
+  writer threads.
 
 On an out-of-memory error at the first dispatch, ``predict_dense_to_kd``
 halves the largest tile axis and rebuilds (``shrink_tile_shape``).
@@ -45,6 +49,7 @@ from ..io import resident
 from ..io.chunked import ChunkedVolume
 from ..models.convert import params_from_flax
 from ..models.unet_engine import engine_supported, unet_apply_packed
+from ..ops.pool import pool_mag2
 from ..parallel.device import canonical_device, data_sharding, gather, on_device, place
 from ..parallel.sharded import mesh_from_config
 from ..utils import tracing
@@ -81,13 +86,14 @@ def shrink_tile_shape(tile_shape, halo, patch):
 
 
 class _Pending:
-    """A dispatched batch: device work enqueued, result landing in pinned
-    host memory; ``event`` fires when the download is done."""
+    """A dispatched batch: device work enqueued, result (and the mag-2 maps,
+    where asked for) landing in pinned host memory; ``event`` fires when the
+    downloads are done."""
 
-    __slots__ = ("host", "event", "keep")
+    __slots__ = ("host", "pooled", "event", "keep")
 
-    def __init__(self, host, event, keep):
-        self.host, self.event, self.keep = host, event, keep
+    def __init__(self, host, pooled, event, keep):
+        self.host, self.pooled, self.event, self.keep = host, pooled, event, keep
 
 
 class DenseTilePredictor:
@@ -190,25 +196,51 @@ class DenseTilePredictor:
             return (fg.to(torch.uint8) * bit_weights).sum(-1, dtype=torch.uint8)
 
     # ------------------------------------------------------------- pipeline
-    def dispatch(self, x: np.ndarray):
-        """Upload + launch + enqueue the download (non-blocking on CUDA)."""
+    def dispatch(self, x: np.ndarray, extents=None, classes: Optional[Sequence[int]] = None):
+        """Upload + launch + enqueue the download (non-blocking on CUDA).
+
+        With ``extents`` ((B, 3): each row's crop extent inside the volume,
+        0 for a row that only pads the batch; probs mode), the maps of
+        ``classes`` (default all) are also pooled to mag 2 on the device
+        (``ops.pool.pool_mag2``: the chunk store's edge-padded mean, to the
+        byte) and downloaded beside the packed output."""
         x = np.ascontiguousarray(x, dtype=np.uint8)
         if self.device.type == "cpu":
-            return self._forward(torch.from_numpy(x)).numpy()
+            out = self._forward(torch.from_numpy(x))
+            if extents is None:
+                return out.numpy()
+            return out.numpy(), self._pool(out, extents, classes).numpy()
         xh = torch.from_numpy(x).pin_memory()
         out = self._forward(xh.to(self.device, non_blocking=True))
+        pooled = host2 = None
+        if extents is not None:
+            pooled = self._pool(out, extents, classes)
+            host2 = torch.empty(pooled.shape, dtype=pooled.dtype, pin_memory=True)
+            host2.copy_(pooled, non_blocking=True)
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         host.copy_(out, non_blocking=True)
         ev = torch.cuda.Event()
         ev.record()
-        return _Pending(host, ev, (xh, out))
+        return _Pending(host, host2, ev, (xh, out, pooled))
 
-    def fetch_raw(self, pending) -> np.ndarray:
-        """Wait for a dispatched batch; returns the packed patched array."""
-        if isinstance(pending, np.ndarray):
+    def _pool(self, out: torch.Tensor, extents, classes) -> torch.Tensor:
+        if self.mode != "probs":
+            raise ValueError("mag-2 pooling takes probs mode")
+        ext = np.asarray(extents, np.int64)
+        live = ext.min(axis=1) > 0
+        n_cls = self.n_classes if classes is None else len(classes)
+        voxels = int(np.prod(-(-ext[live] // 2), axis=1).sum()) * n_cls
+        with tracing.span("dense.pool", device=out.device, tiles=int(live.sum()), voxels=voxels):
+            return pool_mag2(out, ext, self.patch, self.n_classes, classes)
+
+    def fetch_raw(self, pending):
+        """Wait for a dispatched batch; returns the packed patched array, and
+        with it the mag-2 maps where :meth:`dispatch` was given extents."""
+        if isinstance(pending, (np.ndarray, tuple)):
             return pending
         pending.event.synchronize()
-        return pending.host.numpy().copy()
+        raw = pending.host.numpy().copy()
+        return raw if pending.pooled is None else (raw, pending.pooled.numpy().copy())
 
     @tracing.traced("dense.unpack")
     def unpack(self, out: np.ndarray) -> np.ndarray:
@@ -459,20 +491,34 @@ def predict_dense_to_kd(
 
     tiles = [np.array([gx, gy, gz]) * ts for gx in range(grid[0])
              for gy in range(grid[1]) for gz in range(grid[2])]
+    mapped = [(name, ch) for name, ch in channel_mapping.items() if name in targets]
+    # probability maps wanted at mag 2 are pooled on the device and come down
+    # beside the mag-1 maps; the chunk store pools the other mags (and masks
+    # take its stride view). Tiles at odd offsets leave the mag-2 writes to
+    # the chunk store, which refuses them.
+    card_pool = mode == "probs" and 2 in target_mags and bool(mapped) and not np.any(ts % 2)
+    host_mags = tuple(m for m in target_mags if m != 2) if card_pool else tuple(target_mags)
+    classes = [ch for _, ch in mapped]
+
+    def extent(i):
+        return np.minimum(tiles[i] + ts, sh) - tiles[i]
 
     def load_tile(offset):
         return src.load_raw(offset=offset - h, size=ts + 2 * h, mag=mag)
 
-    def unpack_and_write(offset, res):
-        """Chunk writes of one unpacked tile (runs in a writer thread)."""
-        hi = np.minimum(offset + ts, sh)
-        s = hi - offset
-        for name, ch in channel_mapping.items():
-            if name not in targets:
-                continue
+    def unpack_and_write(offset, res, pooled):
+        """Chunk writes of one unpacked tile (runs in a writer thread);
+        ``pooled``: its (K, ...) mag-2 maps of ``mapped``, or None."""
+        s = np.minimum(offset + ts, sh) - offset
+        h2 = -(-s // 2)
+        for j, (name, ch) in enumerate(mapped):
             if mode == "probs":
                 data = np.ascontiguousarray(res[:s[0], :s[1], :s[2], ch])
-                targets[name].save_raw(data, offset, target_mags)
+                if host_mags:
+                    targets[name].save_raw(data, offset, host_mags)
+                if pooled is not None:
+                    targets[name].save_raw(pooled[j, :h2[0], :h2[1], :h2[2]], offset // 2, (2,),
+                                           data_mag=2)
             else:
                 data = res[ch, :s[0], :s[1], :s[2]] * np.uint8(255)
                 targets[name].save_raw(data, offset, target_mags, downsample="stride")
@@ -480,10 +526,11 @@ def predict_dense_to_kd(
             labels = np.argmax(res[:s[0], :s[1], :s[2]], axis=-1).astype(np.uint64)
             seg_kd.save_seg(labels, offset, target_mags)
 
-    def unpack_batch_and_write(batch_ixs, raw):
+    def unpack_batch_and_write(batch_ixs, got):
+        raw, pooled = got if card_pool else (got, None)
         res = pred.unpack(raw)
         for k, ti in enumerate(batch_ixs):
-            unpack_and_write(tiles[ti], res[k])
+            unpack_and_write(tiles[ti], res[k], None if pooled is None else pooled[k])
 
     batch = max(1, int(pred.batch_size))
     writer = ThreadPoolExecutor(max_workers=io_threads)
@@ -503,10 +550,10 @@ def predict_dense_to_kd(
     def drain_one():
         nonlocal n_vox
         bi, pending = inflight.popleft()
-        raw = pred.fetch_raw(pending)
-        write_futs.append(writer.submit(unpack_batch_and_write, batches[bi], raw))
+        got = pred.fetch_raw(pending)
+        write_futs.append(writer.submit(unpack_batch_and_write, batches[bi], got))
         for i in batches[bi]:
-            n_vox += int(np.prod(np.minimum(tiles[i] + ts, sh) - tiles[i]))
+            n_vox += int(np.prod(extent(i)))
 
     assembling = _assembling(targets, seg_kd)
     try:
@@ -518,7 +565,12 @@ def predict_dense_to_kd(
             nxt = bi + prefetch_depth
             if nxt < len(batches):
                 load_futs[nxt] = [loader.submit(load_tile, tiles[i]) for i in batches[nxt]]
-            inflight.append((bi, pred.dispatch(data)))
+            if card_pool:
+                ext = np.zeros((batch, 3), np.int64)  # padding rows: 0
+                ext[:len(batches[bi])] = [extent(i) for i in batches[bi]]
+                inflight.append((bi, pred.dispatch(data, ext, classes)))
+            else:
+                inflight.append((bi, pred.dispatch(data)))
             n_dispatch += 1
             while len(inflight) > pipeline_depth:
                 drain_one()

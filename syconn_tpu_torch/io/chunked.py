@@ -546,7 +546,8 @@ class ChunkedVolume:
             if f == 1:
                 d = data
             else:
-                with tracing.span("chunk.downsample", mag=mag, mode=downsample):
+                with tracing.span("chunk.downsample", mag=mag, mode=downsample,
+                                  voxels=int(np.prod(_cdiv(np.array(data.shape), f)))):
                     if downsample == "stride":
                         d = data[::f, ::f, ::f]
                     else:  # mean pooling, edge-padded to a multiple of f

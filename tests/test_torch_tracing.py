@@ -21,10 +21,10 @@ SPANS = {
     "dense.predict": {"route"}, "dense.unpack": set(), "engine.forward": {"batch"},
     "engine.head": {"batch"}, "predictor.build": {"replicas"}, "resident.predict": {"tiles"},
     "resident.stack": {"tiles"}, "resident.concat": {"tiles"}, "resident.reassembly": {"channel"},
-    "chunk.load": {"mag"}, "chunk.save": {"mags"}, "chunk.downsample": {"mag", "mode"},
+    "chunk.load": {"mag"}, "chunk.save": {"mags"}, "chunk.downsample": {"mag", "mode", "voxels"},
     "chunk.lock_wait": set(), "chunk.rmw_read": set(),
     "chunk.write": {"key", "rmw", "pieces", "early"}, "chunk.compress": set(),
-    "chunk.stage": set(),
+    "chunk.stage": set(), "dense.pool": {"tiles", "voxels"},
 }
 SHAPE = (64, 64, 32)  # 2 x 2 x 2 tiles of (32, 32, 16); one mag-2 chunk a map
 
