@@ -20,21 +20,20 @@ Phases, each failing the run on error:
   3. the slice: ``predict_synapsetype`` (probs) and ``predict_myelin``
      (masks) over a seeded 512x512x256 volume in the port's chunk store,
      checking that every kernel of the path was launched the expected
-     number of times (the mag-2 pooling kernel once a syntype dispatch but
-     the probe, never for the masks), that the outputs are well-formed, that
-     the syntype maps at mag 2 equal the host pooling of those at mag 1, and
-     that the kernel path agrees with the plain CPU path on a small input;
+     number of times, that the outputs are well-formed, that the syntype
+     maps at mag 2 (pooled on the card) equal the host pooling of those at
+     mag 1, and that the kernel path agrees with the plain CPU path on a
+     small input;
   4. the contact kernel against its plain version (all integers: equal) at
      the deployment chunk (256, 256, 128) + halo (6, 6, 3), tile (32, 32),
      K = 32, stencil (13, 13, 7), at an awkward shape with overflowing
      columns, and at the deployment shape on dense labels (~22 live
      candidates a column);
-  4b. the mag-2 pooling kernel (``ops/csrc/pool.cu``) against its plain
-     version on the card (equal to the byte) at both configurations' tiles,
-     (256, 256, 128) with patch (2, 2, 2) and 3 classes pooled and with
-     (4, 4, 2) and 2, odd crops and a padding row included, each crop and
-     class against the chunk store's host pooling; kernel, plain-version
-     and library times and the bytes bound of one tile;
+  4b. the mag-2 pooling (``ops/pool.py::pool_mag2``) on the card at both
+     configurations' tiles, (256, 256, 128) with patch (2, 2, 2) and 3
+     classes pooled and with (4, 4, 2) and 2, odd crops and a padding row
+     included: each crop and class equal to the chunk store's host pooling,
+     the padding row zero;
   5. the contact slice: ``run_contact_extraction`` over a seeded
      512x512x256 label volume, streaming (``CsDispatcher``, the CUDA kernel)
      and from the device-resident store; kernel launches equal the chunks,
@@ -44,9 +43,9 @@ Phases, each failing the run on error:
      the streaming path): ``predict_cellorganelles`` (the organelles U-Net,
      whose conv shapes phase 2 checks too) over the slice's raw volume,
      streamed and then resident (``ResidentDensePredictor``), outputs on disk
-     equal at mags 1 and 2 (the stream route pools mag 2 on the card, one
-     launch a dispatch but the probe, equal to the host pooling of its mag 1;
-     the resident route on the host) and the registered ``mi``/``vc`` maps
+     equal at mags 1 and 2 (the stream route pools mag 2 on the card, equal
+     to the host pooling of its mag 1; the resident route on the host) and
+     the registered ``mi``/``vc`` maps
      equal to disk; ``kd_init``
      for ``mi`` and ``vc`` on seeded blob probability maps, resident
      (``ResidentSegmenter``) and streaming through the device chain on the
@@ -203,12 +202,11 @@ CONTACT_SHAPES = [
     # candidates per column (2 of 64 columns overflow)
     ("dense", (268, 268, 134), (13, 13, 7), (32, 32), 32, (24, 24, 40), False),
 ]
-# mag-2 pooling of the class maps from the packed head output (no TPU kernel:
-# the JAX package pools each tile on the host, syconn_tpu/io/chunked.py,
+# mag-2 pooling of the class maps from the packed head output on the card (the
+# JAX package pools each tile on the host, syconn_tpu/io/chunked.py,
 # ``_save_multi_mag``), at the dense step's tile: (configuration, patch,
 # classes of the head, classes pooled, batch rows' crop extents: a whole tile,
 # an odd crop, a row that only pads the batch)
-POOL_SOURCE = "syconn_tpu_torch/ops/csrc/pool.cu"
 POOL_TILE = (256, 256, 128)
 POOL_SHAPES = [
     ("organelles", (2, 2, 2), 4, [1, 2, 3], [(256, 256, 128), (255, 13, 127), (0, 0, 0)]),
@@ -549,34 +547,23 @@ def phase_contact_kernels(dev, shapes=None):
     return rows
 
 
-def phase_pool_kernels(dev):
-    """Phase 4b: the mag-2 pooling kernel against its plain version on the
-    card, equal to the byte, at both configurations' tiles (odd crops and a
-    padding row included), and each pooled class of each crop against the
-    chunk store's host pooling; kernel, plain-version and library times and
-    the bytes bound of one whole tile."""
+def phase_pool(dev):
+    """Phase 4b: the mag-2 pooling on the card at both configurations'
+    tiles (odd crops and a padding row included): each pooled class of each
+    crop equal to the chunk store's host pooling, the padding row zero."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
     from syconn_tpu_torch.io.chunked import ChunkedVolume
-    from syconn_tpu_torch.ops import pool as P
+    from syconn_tpu_torch.ops.pool import pool_mag2
 
     gen = torch.Generator(device=dev).manual_seed(3)
-    rows = []
     for task, patch, n_cls, classes, extents in POOL_SHAPES:
         sp = [t // p for t, p in zip(POOL_TILE, patch)]
         pvox = int(np.prod(patch))
         x = torch.randint(0, 256, (len(extents), *sp, n_cls * pvox), generator=gen, device=dev,
                           dtype=torch.uint8)
-        n0 = P.LAUNCHES["pool_mag2"]
-        got = P.pool_mag2(x, extents, patch, n_cls, classes)
-        torch.cuda.synchronize()
-        if P.LAUNCHES["pool_mag2"] != n0 + 1:
-            raise AssertionError(f"pool {task}: {P.LAUNCHES['pool_mag2'] - n0} launches for one call")
-        n_diff = int((got != P.pool_mag2_ref(x, extents, patch, n_cls, classes)).sum())
-        if n_diff:
-            raise AssertionError(f"pool {task}: {n_diff} bytes differ from the plain version")
+        got = pool_mag2(x, extents, patch, n_cls, classes)
         vox = x.cpu().numpy().reshape(len(extents), *sp, n_cls, *patch)
         vox = vox.transpose(0, 4, 1, 5, 2, 6, 3, 7).reshape(len(extents), n_cls, *POOL_TILE)
         out = got.cpu().numpy()
@@ -596,44 +583,9 @@ def phase_pool_kernels(dev):
                                           store.load_raw(size=h, mag=2)):
                         raise AssertionError(f"pool {task}: crop {e} class {c} != the chunk "
                                              f"store's host pooling")
-        # one whole tile: the kernel, its plain version, and a library yardstick
-        # (avg_pool3d over the pooled classes already unpacked to float16: no
-        # unpacking, edge rule or truncation; timed only, never used)
-        x1, e1 = x[:1].contiguous(), [POOL_TILE]
-        k_ms = cuda_ms(lambda: P.pool_mag2(x1, e1, patch, n_cls, classes))
-        p_ms = cuda_ms(lambda: P.pool_mag2_ref(x1, e1, patch, n_cls, classes), warmup=1, reps=3,
-                       inner=2)
-        lib_in = x1.reshape(1, *sp, n_cls, *patch)[:, :, :, :, classes]
-        lib_in = lib_in.permute(0, 4, 1, 5, 2, 6, 3, 7).reshape(1, len(classes), *POOL_TILE)
-        lib_in = lib_in.to(torch.float16).contiguous()
-        l_ms = cuda_ms(lambda: F.avg_pool3d(lib_in, 2))
-        # the pooled classes' bytes of the packed tile, read once, and the output
-        nbytes = int(np.prod(sp)) * len(classes) * pvox + got[:1].numel()
-        bound = nbytes / PEAK_BYTES * 1e3
-        row = dict(name="pool_mag2", task=task, patch=list(patch), classes=classes,
-                   tile=list(POOL_TILE), extents=[list(e) for e in extents], main_path=True,
-                   max_abs_err=0, kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                   library_note="avg_pool3d on the classes unpacked to float16",
-                   bound_ms=bound, bound_by="bytes", bound_bytes=nbytes,
-                   roofline_pct=100 * bound / k_ms)
-        rows.append(row)
-        log("kernel " + json.dumps(row))
-        del x, x1, got, lib_in
-    return rows
-
-
-def check_pool_launches(what: str, stats: dict, n0: int, card_pool: bool) -> int:
-    """The mag-2 pooling kernel's launches in a ``predict_dense_to_kd`` call
-    (``n0`` before it): one a dispatch but the first-dispatch probe where the
-    stream route writes probability maps at mag 2, else none."""
-    from syconn_tpu_torch.ops import pool as P
-
-    got = P.LAUNCHES["pool_mag2"] - n0
-    want = stats["dispatches"] - 1 if card_pool and stats["route"] == "stream" else 0
-    if got != want:
-        raise AssertionError(f"{what}: pool_mag2 launched {got} times, expected {want} "
-                             f"({stats['dispatches']} dispatches, {stats['route']} route)")
-    return got
+        log(f"pool {task}: patch {tuple(patch)}, classes {classes}, crops "
+            f"{[tuple(e) for e in extents]} equal to the chunk store's host pooling")
+        del x, got
 
 
 def check_mag2_is_host_pooling(what: str, path: str, shape, work: str) -> None:
@@ -716,7 +668,6 @@ def phase_slice(dev, work: str):
 
     from syconn_tpu_torch.exec.exec_dense_prediction import predict_myelin, predict_synapsetype
     from syconn_tpu_torch.io.chunked import ChunkedVolume
-    from syconn_tpu_torch.ops import pool as P
     from syconn_tpu_torch.ops.conv3d import LAUNCHES, reset_launch_counts
 
     shape = (512, 512, 256)
@@ -732,7 +683,6 @@ def phase_slice(dev, work: str):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
-        n_pool = P.LAUNCHES["pool_mag2"]
         if task == "syntype":
             stats = predict_synapsetype(kd_path=kd, target_paths=targets,
                                         tile_shape=(256, 256, 128), halo=(32, 32, 16),
@@ -743,7 +693,6 @@ def phase_slice(dev, work: str):
                                    device=dev, show_progress=False)
         counts = dict(LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
-        pooled = check_pool_launches(task, stats, n_pool, card_pool=task == "syntype")
         for k, per in PER_TILE[task].items():
             want = stats["dispatches"] * per
             if counts[k] <= 0 or counts[k] != want:
@@ -760,7 +709,7 @@ def phase_slice(dev, work: str):
         if task == "syntype":
             for n, path in targets.items():
                 check_mag2_is_host_pooling(f"syntype {n}", path, shape, work)
-        res = dict(stats, peak_bytes=int(peak), launches=dict(counts, pool_mag2=pooled),
+        res = dict(stats, peak_bytes=int(peak), launches=counts,
                    mean_out=float(out.mean()), output=name)
         results[task] = res
         log(f"slice {task} " + json.dumps(res))
@@ -955,7 +904,6 @@ def phase_slice_organelles(dev, work: str, kd: str, shape=(512, 512, 256)):
     from syconn_tpu_torch.exec.exec_dense_prediction import predict_cellorganelles
     from syconn_tpu_torch.io import resident
     from syconn_tpu_torch.io.chunked import ChunkedVolume
-    from syconn_tpu_torch.ops import pool as P
     from syconn_tpu_torch.ops.conv3d import LAUNCHES, reset_launch_counts
 
     launches = {k: 0 for k in LAUNCHES}
@@ -970,7 +918,6 @@ def phase_slice_organelles(dev, work: str, kd: str, shape=(512, 512, 256)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
-        n_pool = P.LAUNCHES["pool_mag2"]
         stats = predict_cellorganelles(kd_path=kd, target_paths=targets,
                                        tile_shape=(256, 256, 128), halo=(32, 32, 16),
                                        device=dev, show_progress=False)
@@ -978,8 +925,6 @@ def phase_slice_organelles(dev, work: str, kd: str, shape=(512, 512, 256)):
         peak = torch.cuda.max_memory_allocated()
         if stats["route"] != mode:
             raise AssertionError(f"organelles {mode}: took the {stats['route']} route")
-        # the stream route pools the maps to mag 2 on the card; the resident one on the host
-        pooled = check_pool_launches(f"organelles {mode}", stats, n_pool, card_pool=True)
         for k, per in PER_TILE["organelles"].items():
             if counts[k] <= 0 or counts[k] != stats["dispatches"] * per:
                 raise AssertionError(f"organelles {mode}: {k} launched {counts[k]} times, "
@@ -991,7 +936,7 @@ def phase_slice_organelles(dev, work: str, kd: str, shape=(512, 512, 256)):
         if mode == "stream":
             for c, p in targets.items():
                 check_mag2_is_host_pooling(f"organelles stream {c}", p, shape, work)
-        line = dict(stats, peak_bytes=int(peak), launches=dict(counts, pool_mag2=pooled),
+        line = dict(stats, peak_bytes=int(peak), launches=counts,
                     tile_batch=stats.get("tile_batch", 1))
         log(f"slice organelles {mode} " + json.dumps(line))
         if mode == "resident":
@@ -4641,7 +4586,6 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from syconn_tpu_torch.io import resident
     from syconn_tpu_torch.ops import build
-    from syconn_tpu_torch.ops import pool as P
     from syconn_tpu_torch.utils.device import default_device
 
     t_all = time.perf_counter()
@@ -4671,8 +4615,7 @@ def main() -> int:
     rows = phase_kernels(dev)
     phase_repack(dev)
     contact_rows = phase_contact_kernels(dev)
-    pool_rows = phase_pool_kernels(dev)
-    pool_base = P.LAUNCHES["pool_mag2"]  # the slices' launches are counted from here
+    phase_pool(dev)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         phase_reference(dev)
@@ -4785,13 +4728,6 @@ def main() -> int:
         launches=contacts["launches"], max_abs_err=max(r["max_abs_err"] for r in contact_rows),
         ms=crow["kernel_ms"], plain_ms=crow["plain_ms"], bound_ms=crow["bound_ms"],
         bound_by=crow["bound_by"], library_ms=None))
-    prow = next(r for r in pool_rows if r["task"] == "organelles")
-    kernels.append(dict(
-        name="pool_mag2", route="cuda", source=POOL_SOURCE, replaces=None,
-        launches=P.LAUNCHES["pool_mag2"] - pool_base,
-        max_abs_err=max(r["max_abs_err"] for r in pool_rows), per="organelles tile, 3 classes",
-        ms=prow["kernel_ms"], plain_ms=prow["plain_ms"], bound_ms=prow["bound_ms"],
-        bound_by=prow["bound_by"], library_ms=prow["library_ms"]))
     log(f"whole run {time.perf_counter() - t_all:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

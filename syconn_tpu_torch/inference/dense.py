@@ -34,6 +34,7 @@ step (object extraction reads ``mi``/``vc`` from there).
 from __future__ import annotations
 
 import contextlib
+import functools
 import logging
 import os
 import time
@@ -427,7 +428,9 @@ def predict_dense_to_kd(
 
     A source whose 'raw' channel at ``mag`` is held by ``io.resident`` runs
     through :class:`ResidentDensePredictor` when no ``predictor`` is given
-    (see :func:`_predict_resident`).
+    (see :func:`_predict_resident`), else the tiles stream from the store
+    (:func:`_predict_stream`). A given ``predictor`` sets the route, mode,
+    device and mesh.
 
     Returns timing/throughput stats; ``dispatches`` counts forward passes
     (the first-dispatch probe included), ``route`` is ``"stream"`` or
@@ -435,46 +438,26 @@ def predict_dense_to_kd(
     """
     src = ChunkedVolume.open(kd_path)
     res_src = resident.get(kd_path, "raw", mag) if predictor is None else None
-    if mesh is None and predictor is None and res_src is None:
-        mesh = mesh_from_config(axis_name="data", device=default_device(device))
-    n_dispatch = 0
     if predictor is not None:
-        pred = predictor
+        pred_cls = type(predictor)
+        mode, device, mesh = predictor.mode, predictor.device, predictor.mesh
     else:
-        # OOM-adaptive tile sizing: try the requested tile; on a device OOM
-        # at the first dispatch halve the largest axis and retry
         pred_cls = ResidentDensePredictor if res_src is not None else DenseTilePredictor
-        while True:
-            pred = pred_cls(model, params, tile_shape=tile_shape, halo=halo, mode=mode,
-                            thresholds=thresholds, batch_size=batch_size, device=device,
-                            mesh=mesh)
-            try:
-                warm = np.zeros((pred.batch_size,) + pred._in_shape[1:], np.uint8)
-                n_dispatch += 1
-                pred.fetch_raw(pred.dispatch(warm))
-                break
-            except Exception as e:
-                if not _is_oom(e):
-                    raise
-                shrunk = shrink_tile_shape(tile_shape, halo, pred.patch)
-                if shrunk is None:
-                    raise
-                del pred
-                if torch.cuda.is_available():
-                    torch.cuda.empty_cache()
-                log.warning("device OOM at tile %s; retrying with tile %s halo %s",
-                            tuple(tile_shape), *shrunk)
-                tile_shape, halo = shrunk
+        if mesh is None and res_src is None:
+            mesh = mesh_from_config(axis_name="data", device=default_device(device))
+    # every argument but the tile: the first-dispatch probe and the resident
+    # route's OOM rebuild make their predictors with it
+    new_predictor = functools.partial(pred_cls, model, params, mode=mode, thresholds=thresholds,
+                                      batch_size=batch_size, device=device, mesh=mesh)
+    pred, n_dispatch = ((predictor, 0) if predictor is not None
+                        else _probed_predictor(new_predictor, tile_shape, halo))
     sh = src.mag_shape(mag)
-    ts = np.asarray(tile_shape, np.int64)
-    h = np.asarray(halo, np.int64)
-    grid = _cdiv(sh, ts)
     scale = src.scale * mag
 
     def create(path):
         return ChunkedVolume.create(path, scale=scale, boundary=sh,
                                     experiment_name=src.experiment_name,
-                                    chunk_shape=tuple(int(t) for t in ts))
+                                    chunk_shape=tuple(int(t) for t in pred.tile_shape))
 
     targets = {name: create(path) for name, path in target_paths.items()}
     seg_kd = None
@@ -482,23 +465,131 @@ def predict_dense_to_kd(
         if mode != "probs":
             raise ValueError("seg output requires probs mode")
         seg_kd = create(seg_path)
+    mapped = [(name, ch) for name, ch in channel_mapping.items() if name in targets]
+    writer = _TileWriter(targets, mapped, seg_kd, mode, target_mags, sh)
 
     tracing.annotate(route="resident" if isinstance(pred, ResidentDensePredictor) else "stream")
     if isinstance(pred, ResidentDensePredictor):
-        return _predict_resident(pred, src, res_src, targets, seg_kd, target_paths,
-                                 channel_mapping, mag, target_mags, io_threads, n_dispatch,
-                                 model, params, thresholds, batch_size)
+        return _predict_resident(pred, new_predictor, writer, src, res_src, mag, io_threads,
+                                 n_dispatch)
+    return _predict_stream(pred, writer, src, mag, io_threads, pipeline_depth, show_progress,
+                           n_dispatch)
 
+
+def _probed_predictor(new_predictor, tile_shape, halo):
+    """``new_predictor(tile_shape, halo)`` after one dispatch of zeros went
+    through it; on a device OOM there the largest tile axis halves
+    (:func:`shrink_tile_shape`) and the predictor is made again. Returns the
+    predictor and the dispatches run."""
+    n_dispatch = 0
+    while True:
+        pred = new_predictor(tile_shape, halo)
+        try:
+            warm = np.zeros((pred.batch_size,) + pred._in_shape[1:], np.uint8)
+            n_dispatch += 1
+            pred.fetch_raw(pred.dispatch(warm))
+            return pred, n_dispatch
+        except Exception as e:
+            if not _is_oom(e):
+                raise
+            shrunk = shrink_tile_shape(tile_shape, halo, pred.patch)
+            if shrunk is None:
+                raise
+            del pred
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+            log.warning("device OOM at tile %s; retrying with tile %s halo %s",
+                        tuple(tile_shape), *shrunk)
+            tile_shape, halo = shrunk
+
+
+class _TileWriter:
+    """The chunk writes of :func:`predict_dense_to_kd`'s unpacked tiles,
+    for both routes.
+
+    Each mapped class (``mapped``: (name, channel) in ``channel_mapping``
+    order) is cropped to the volume and written to its target at
+    ``target_mags``: probabilities as they are, the chunk store pooling the
+    mags above 1 by its mean; masks as 0/255, by its stride view; and into
+    ``seg_kd``, where given, the argmax labels. Where the stream route pooled
+    the maps to mag 2 on the device (:meth:`pools_on_device`), mag 2 is
+    written from those and the chunk store pools only the other mags.
+    """
+
+    def __init__(self, targets: Dict[str, ChunkedVolume], mapped, seg_kd: Optional[ChunkedVolume],
+                 mode: str, target_mags: Sequence[int], volume_shape):
+        self.targets, self.mapped, self.seg_kd = targets, mapped, seg_kd
+        self.mode, self.target_mags = mode, tuple(target_mags)
+        self.mags_but_2 = tuple(m for m in self.target_mags if m != 2)
+        self.volume_shape = np.asarray(volume_shape, np.int64)
+
+    def pools_on_device(self, tile_shape) -> bool:
+        """Whether the maps come down pooled to mag 2: probability maps wanted
+        at mag 2, from tiles at even offsets (the chunk store refuses a mag-2
+        write at an odd one)."""
+        return (self.mode == "probs" and 2 in self.target_mags and bool(self.mapped)
+                and not np.any(np.asarray(tile_shape) % 2))
+
+    def assembling(self) -> contextlib.ExitStack:
+        """The targets' ``assembling`` contexts as one: each chunk that
+        several tiles' pieces make up (the mag-2 levels, edge chunks) is
+        written once, and every chunk is on disk when the context ends."""
+        stack = contextlib.ExitStack()
+        for v in [*self.targets.values(), self.seg_kd]:
+            if v is not None:
+                stack.enter_context(v.assembling())
+        return stack
+
+    def write(self, offset, res: np.ndarray, pooled: Optional[np.ndarray] = None) -> None:
+        """Write one tile at ``offset`` (its corner in the volume): ``res`` as
+        :meth:`DenseTilePredictor.unpack` gives one, (X, Y, Z, C)
+        probabilities or (C, X, Y, Z) 0/1 masks; ``pooled`` its (K, ...)
+        mag-2 maps of the mapped classes, or None."""
+        tile = res.shape[:3] if self.mode == "probs" else res.shape[1:]
+        s = np.minimum(offset + np.asarray(tile), self.volume_shape) - offset
+        for j, (name, ch) in enumerate(self.mapped):
+            target = self.targets[name]
+            if self.mode == "masks":
+                target.save_raw(res[ch, :s[0], :s[1], :s[2]] * np.uint8(255), offset,
+                                self.target_mags, downsample="stride")
+                continue
+            data = np.ascontiguousarray(res[:s[0], :s[1], :s[2], ch])
+            if pooled is None:
+                target.save_raw(data, offset, self.target_mags)
+                continue
+            if self.mags_but_2:
+                target.save_raw(data, offset, self.mags_but_2)
+            h2 = -(-s // 2)
+            target.save_raw(pooled[j, :h2[0], :h2[1], :h2[2]], offset // 2, (2,), data_mag=2)
+        if self.seg_kd is not None:
+            labels = np.argmax(res[:s[0], :s[1], :s[2]], axis=-1).astype(np.uint64)
+            self.seg_kd.save_seg(labels, offset, self.target_mags)
+
+
+def _stats(pred: DenseTilePredictor, route: str, n_vox: int, seconds: float, tiles: int,
+           dispatches: int, **extra) -> dict:
+    stats = {"n_voxels": n_vox, "seconds": seconds, "mvox_per_s": n_vox / seconds / 1e6,
+             "tiles": tiles, "dispatches": dispatches, "route": route, **extra,
+             "tile_shape": [int(t) for t in pred.tile_shape],
+             "halo": [int(x) for x in pred.halo]}
+    log.info("dense prediction (%s) done: %.1f MVx in %.1f s (%.1f MVx/s)", route, n_vox / 1e6,
+             seconds, stats["mvox_per_s"])
+    return stats
+
+
+def _predict_stream(pred, writer: _TileWriter, src, mag, io_threads, pipeline_depth,
+                    show_progress, n_dispatch):
+    """The streaming route of :func:`predict_dense_to_kd`: loader threads
+    prefetch source tiles, the batches go through the dispatch/fetch
+    pipeline, and writer threads unpack each batch and write its tiles. The
+    maps come down pooled to mag 2 where ``writer.pools_on_device``."""
+    sh = writer.volume_shape
+    ts, h = pred.tile_shape, pred.halo
+    grid = _cdiv(sh, ts)
     tiles = [np.array([gx, gy, gz]) * ts for gx in range(grid[0])
              for gy in range(grid[1]) for gz in range(grid[2])]
-    mapped = [(name, ch) for name, ch in channel_mapping.items() if name in targets]
-    # probability maps wanted at mag 2 are pooled on the device and come down
-    # beside the mag-1 maps; the chunk store pools the other mags (and masks
-    # take its stride view). Tiles at odd offsets leave the mag-2 writes to
-    # the chunk store, which refuses them.
-    card_pool = mode == "probs" and 2 in target_mags and bool(mapped) and not np.any(ts % 2)
-    host_mags = tuple(m for m in target_mags if m != 2) if card_pool else tuple(target_mags)
-    classes = [ch for _, ch in mapped]
+    card_pool = writer.pools_on_device(ts)
+    classes = [ch for _, ch in writer.mapped]
 
     def extent(i):
         return np.minimum(tiles[i] + ts, sh) - tiles[i]
@@ -506,34 +597,14 @@ def predict_dense_to_kd(
     def load_tile(offset):
         return src.load_raw(offset=offset - h, size=ts + 2 * h, mag=mag)
 
-    def unpack_and_write(offset, res, pooled):
-        """Chunk writes of one unpacked tile (runs in a writer thread);
-        ``pooled``: its (K, ...) mag-2 maps of ``mapped``, or None."""
-        s = np.minimum(offset + ts, sh) - offset
-        h2 = -(-s // 2)
-        for j, (name, ch) in enumerate(mapped):
-            if mode == "probs":
-                data = np.ascontiguousarray(res[:s[0], :s[1], :s[2], ch])
-                if host_mags:
-                    targets[name].save_raw(data, offset, host_mags)
-                if pooled is not None:
-                    targets[name].save_raw(pooled[j, :h2[0], :h2[1], :h2[2]], offset // 2, (2,),
-                                           data_mag=2)
-            else:
-                data = res[ch, :s[0], :s[1], :s[2]] * np.uint8(255)
-                targets[name].save_raw(data, offset, target_mags, downsample="stride")
-        if seg_kd is not None:
-            labels = np.argmax(res[:s[0], :s[1], :s[2]], axis=-1).astype(np.uint64)
-            seg_kd.save_seg(labels, offset, target_mags)
-
     def unpack_batch_and_write(batch_ixs, got):
         raw, pooled = got if card_pool else (got, None)
         res = pred.unpack(raw)
         for k, ti in enumerate(batch_ixs):
-            unpack_and_write(tiles[ti], res[k], None if pooled is None else pooled[k])
+            writer.write(tiles[ti], res[k], None if pooled is None else pooled[k])
 
     batch = max(1, int(pred.batch_size))
-    writer = ThreadPoolExecutor(max_workers=io_threads)
+    write_pool = ThreadPoolExecutor(max_workers=io_threads)
     loader = ThreadPoolExecutor(max_workers=io_threads)
     t0 = time.perf_counter()
     n_vox = 0
@@ -551,11 +622,11 @@ def predict_dense_to_kd(
         nonlocal n_vox
         bi, pending = inflight.popleft()
         got = pred.fetch_raw(pending)
-        write_futs.append(writer.submit(unpack_batch_and_write, batches[bi], got))
+        write_futs.append(write_pool.submit(unpack_batch_and_write, batches[bi], got))
         for i in batches[bi]:
             n_vox += int(np.prod(extent(i)))
 
-    assembling = _assembling(targets, seg_kd)
+    assembling = writer.assembling()
     try:
         for bi in range(len(batches)):
             data = np.stack([f.result() for f in load_futs.pop(bi)])
@@ -581,27 +652,10 @@ def predict_dense_to_kd(
         for f in write_futs:
             f.result()
     finally:
-        writer.shutdown()
+        write_pool.shutdown()
         loader.shutdown()
         assembling.close()  # every chunk on disk before the clock stops
-    dt = time.perf_counter() - t0
-    stats = {"n_voxels": n_vox, "seconds": dt, "mvox_per_s": n_vox / dt / 1e6,
-             "tiles": len(tiles), "dispatches": n_dispatch, "route": "stream",
-             "tile_shape": [int(t) for t in ts], "halo": [int(x) for x in h]}
-    log.info("dense prediction done: %.1f MVx in %.1f s (%.1f MVx/s)",
-             n_vox / 1e6, dt, stats["mvox_per_s"])
-    return stats
-
-
-def _assembling(targets: Dict[str, ChunkedVolume], seg_kd: Optional[ChunkedVolume]):
-    """The target stores' ``assembling`` contexts as one: each chunk that
-    several tiles' pieces make up (the mag-2 levels, edge chunks) is written
-    once, and every chunk is on disk when the context ends."""
-    stack = contextlib.ExitStack()
-    for v in [*targets.values(), seg_kd]:
-        if v is not None:
-            stack.enter_context(v.assembling())
-    return stack
+    return _stats(pred, "stream", n_vox, time.perf_counter() - t0, len(tiles), n_dispatch)
 
 
 def _packed_tile_bytes(pred: DenseTilePredictor) -> int:
@@ -614,20 +668,21 @@ def _packed_tile_bytes(pred: DenseTilePredictor) -> int:
     return int(np.prod(dims)) * lane
 
 
-def _predict_resident(pred, src, res_src, targets, seg_kd, target_paths, channel_mapping, mag,
-                      target_mags, io_threads, n_dispatch, model, params, thresholds, batch_size):
-    """The resident branch of :func:`predict_dense_to_kd`.
+def _predict_resident(pred, new_predictor, writer: _TileWriter, src, res_src, mag, io_threads,
+                      n_dispatch):
+    """The resident route of :func:`predict_dense_to_kd`.
 
     The volume (resident, else loaded whole) is predicted in z-slabs when
     the packed output of all its tiles would exceed 2 GiB; slab seams then
     see a zero halo, as at the volume border. A device OOM shrinks the tile
-    and rebuilds the predictor. With one slab and a resident source at mag
-    1, each class map is reassembled on the device and registered in
-    ``io.resident`` under its target path; an OOM there skips the
-    registration (logged), and consumers read the chunk store instead.
+    and makes the predictor again (``new_predictor``). With one slab and a
+    resident source at mag 1, each class map is reassembled on the device
+    and registered in ``io.resident`` under its target path; an OOM there
+    skips the registration (logged), and consumers read the chunk store
+    instead. The tiles are unpacked and written in writer threads, the maps
+    at mag 2 pooled by the chunk store.
     """
-    mode = pred.mode
-    sh = src.mag_shape(mag)
+    sh = writer.volume_shape
     t0 = time.perf_counter()
     vol = res_src if res_src is not None else src.load_raw(offset=(0, 0, 0), size=sh, mag=mag)
     n_forward = 0
@@ -659,20 +714,14 @@ def _predict_resident(pred, src, res_src, targets, seg_kd, target_paths, channel
                 raise
             log.warning("resident forward OOM; retrying with tile %s halo %s", *shrunk)
             n_forward += pred.n_forward
-            device, mesh = pred.device, pred.mesh
             del pred
             torch.cuda.empty_cache()
-            pred = ResidentDensePredictor(model, params, tile_shape=shrunk[0], halo=shrunk[1],
-                                          mode=mode, thresholds=thresholds,
-                                          batch_size=batch_size, device=device,
-                                          mesh=mesh)
+            pred = new_predictor(*shrunk)
     ts = pred.tile_shape
     registered = []
     if mag == 1 and res_src is not None and len(packed_parts) == 1:
         _, packed, grid_r = packed_parts[0]
-        for name, ch in channel_mapping.items():
-            if name not in target_paths:
-                continue
+        for name, ch in writer.mapped:
             try:
                 cls_vol = pred.class_volume_device(packed, grid_r, int(ch),
                                                    tuple(int(x) for x in sh))
@@ -682,29 +731,16 @@ def _predict_resident(pred, src, res_src, targets, seg_kd, target_paths, channel
                 log.warning("skipping resident registration of %s output (device "
                             "reassembly OOM: %.80s)", name, str(e))
                 break
-            if resident.put(target_paths[name], "raw", cls_vol, mag=mag):
+            if resident.put(writer.targets[name].path, "raw", cls_vol, mag=mag):
                 registered.append(name)
             del cls_vol
 
     def write_one(offset, packed_tile):
-        res = pred.unpack(packed_tile[None])[0]
-        s = np.minimum(offset + ts, sh) - offset
-        for name, ch in channel_mapping.items():
-            if name not in targets:
-                continue
-            if mode == "probs":
-                targets[name].save_raw(np.ascontiguousarray(res[:s[0], :s[1], :s[2], ch]),
-                                       offset, target_mags)
-            else:
-                targets[name].save_raw(res[ch, :s[0], :s[1], :s[2]] * np.uint8(255), offset,
-                                       target_mags, downsample="stride")
-        if seg_kd is not None:
-            labels = np.argmax(res[:s[0], :s[1], :s[2]], axis=-1).astype(np.uint64)
-            seg_kd.save_seg(labels, offset, target_mags)
+        writer.write(offset, pred.unpack(packed_tile[None])[0])
 
     n_tiles = 0
     write_one = tracing.carry(write_one)
-    with _assembling(targets, seg_kd), ThreadPoolExecutor(max_workers=io_threads) as writer:
+    with writer.assembling(), ThreadPoolExecutor(max_workers=io_threads) as write_pool:
         futs = []
         for z_base, packed, grid_r in packed_parts:
             packed = packed if isinstance(packed, np.ndarray) else packed.cpu().numpy()
@@ -714,18 +750,11 @@ def _predict_resident(pred, src, res_src, targets, seg_kd, target_paths, channel
                     for gz in range(grid_r[2]):
                         off = np.array([gx, gy, gz]) * ts
                         off[2] += z_base
-                        futs.append(writer.submit(write_one, off, packed[k]))
+                        futs.append(write_pool.submit(write_one, off, packed[k]))
                         k += 1
             n_tiles += k
         for f in futs:
             f.result()
-    dt = time.perf_counter() - t0
-    n_vox = int(np.prod(sh))
-    stats = {"n_voxels": n_vox, "seconds": dt, "mvox_per_s": n_vox / dt / 1e6,
-             "tiles": n_tiles, "dispatches": n_dispatch + n_forward + pred.n_forward,
-             "route": "resident", "tile_batch": pred.tile_batch, "slabs": len(packed_parts),
-             "registered": registered, "tile_shape": [int(t) for t in ts],
-             "halo": [int(x) for x in pred.halo]}
-    log.info("dense prediction (resident) done: %.1f MVx in %.1f s (%.1f MVx/s)",
-             n_vox / 1e6, dt, stats["mvox_per_s"])
-    return stats
+    return _stats(pred, "resident", int(np.prod(sh)), time.perf_counter() - t0, n_tiles,
+                  n_dispatch + n_forward + pred.n_forward, tile_batch=pred.tile_batch,
+                  slabs=len(packed_parts), registered=registered)

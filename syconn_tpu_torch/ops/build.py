@@ -50,10 +50,6 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
         "detect_cs_columns_launch": ([_P] * 5 + [_I] * 10 + [_P], _I),
         "contacts_error_string": ([_I], ctypes.c_char_p),
     },
-    "pool": {
-        "pool_mag2_launch": ([_P] * 3 + [_I] * 9 + [_P], _I),
-        "pool_error_string": ([_I], ctypes.c_char_p),
-    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,6 +1,5 @@
 """Mean pooling of the dense step's class maps to mag 2, from the packed
-patched head output: the hand-written CUDA kernel (``csrc/pool.cu``) and its
-plain PyTorch version.
+patched head output, in plain PyTorch on the tensor's device.
 
 The chunk store pools a tile to mag 2 on the host by casting it to float32,
 edge-padding it to even extents and taking the mean of each 2x2x2 block
@@ -8,22 +7,16 @@ edge-padding it to even extents and taking the mean of each 2x2x2 block
 in float32 and its truncation to uint8 is ``(sum of the 8) >> 3``, so
 :func:`pool_mag2` gives the host's bytes, edge rule included, from the
 packed layout the predictor downloads (``inference/dense.py``).
-
-:func:`pool_mag2` runs :func:`pool_mag2_ref` for CPU tensors and launches
-the kernel for CUDA tensors (raising on what it does not take); nothing
-falls back from one to the other. ``LAUNCHES`` counts the kernel's launches.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-__all__ = ["LAUNCHES", "pool_mag2", "pool_mag2_ref"]
-
-LAUNCHES: Dict[str, int] = {"pool_mag2": 0}
+__all__ = ["pool_mag2"]
 
 
 def _cdiv(a, b):
@@ -53,11 +46,27 @@ def _check_args(packed, extents, patch, n_classes, classes):
     return patch, tile, ext, classes
 
 
-def pool_mag2_ref(packed: torch.Tensor, extents, patch: Sequence[int], n_classes: int,
-                  classes: Optional[Sequence[int]] = None) -> torch.Tensor:
-    """Plain version of :func:`pool_mag2` (same arguments): the classes'
+def pool_mag2(packed: torch.Tensor, extents, patch: Sequence[int], n_classes: int,
+              classes: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Pool classes of a packed patched tile batch to mag 2: the classes'
     voxels unpacked, each row's crop edge-padded by clamped indices, the
-    2x2x2 sums in int32 shifted by 3."""
+    2x2x2 sums in int32 shifted by 3.
+
+    Args:
+        packed: (B, sx, sy, sz, n_classes * prod(patch)) uint8, contiguous:
+            the predictor's output, voxel (i * px + a, j * py + b, k * pz + c)
+            of class ch at position (i, j, k), byte
+            ``ch * pvox + (a * py + b) * pz + c``.
+        extents: (B, 3) integers, each row's crop extent inside the volume
+            (at most the tile ``(sx * px, sy * py, sz * pz)``; a row with a 0
+            only pads the batch).
+        classes: the classes to pool, in output order (default: all).
+    Returns:
+        (B, K, ceil(sx * px / 2), ceil(sy * py / 2), ceil(sz * pz / 2))
+        uint8 on ``packed``'s device: inside ``ceil(extent / 2)`` the sum of
+        each 2x2x2 block >> 3, voxel indices clamped to ``extent - 1`` (the
+        chunk store's edge-padded mean, truncated); 0 elsewhere.
+    """
     (px, py, pz), tile, ext, classes = _check_args(packed, extents, patch, n_classes, classes)
     b, sx, sy, sz, _ = packed.shape
     half = [_cdiv(int(t), 2) for t in tile]
@@ -76,43 +85,3 @@ def pool_mag2_ref(packed: torch.Tensor, extents, patch: Sequence[int], n_classes
     return out
 
 
-def pool_mag2(packed: torch.Tensor, extents, patch: Sequence[int], n_classes: int,
-              classes: Optional[Sequence[int]] = None) -> torch.Tensor:
-    """Pool classes of a packed patched tile batch to mag 2.
-
-    Args:
-        packed: (B, sx, sy, sz, n_classes * prod(patch)) uint8, contiguous:
-            the predictor's output, voxel (i * px + a, j * py + b, k * pz + c)
-            of class ch at position (i, j, k), byte
-            ``ch * pvox + (a * py + b) * pz + c``.
-        extents: (B, 3) integers, each row's crop extent inside the volume
-            (at most the tile ``(sx * px, sy * py, sz * pz)``; a row with a 0
-            only pads the batch).
-        classes: the classes to pool, in output order (default: all).
-    Returns:
-        (B, K, ceil(sx * px / 2), ceil(sy * py / 2), ceil(sz * pz / 2))
-        uint8 on ``packed``'s device: inside ``ceil(extent / 2)`` the sum of
-        each 2x2x2 block >> 3, voxel indices clamped to ``extent - 1`` (the
-        chunk store's edge-padded mean, truncated); 0 elsewhere.
-    """
-    if packed.device.type == "cpu":
-        return pool_mag2_ref(packed, extents, patch, n_classes, classes)
-    if packed.device.type != "cuda":
-        raise ValueError(f"unsupported device {packed.device}")
-    (px, py, pz), tile, ext, classes = _check_args(packed, extents, patch, n_classes, classes)
-    from .build import library
-
-    lib = library("pool")
-    b, sx, sy, sz, _ = packed.shape
-    meta = torch.from_numpy(np.concatenate([ext.ravel(), classes]).astype(np.int32))
-    meta = meta.pin_memory().to(packed.device, non_blocking=True)
-    out = torch.empty((b, len(classes), *(_cdiv(int(t), 2) for t in tile)), dtype=torch.uint8,
-                      device=packed.device)
-    stream = torch.cuda.current_stream(packed.device).cuda_stream
-    with torch.cuda.device(packed.device):
-        rc = lib.pool_mag2_launch(packed.data_ptr(), meta.data_ptr(), out.data_ptr(), b, sx, sy,
-                                  sz, n_classes, px, py, pz, len(classes), stream)
-    if rc != 0:
-        raise RuntimeError(f"pool kernel launch failed: {lib.pool_error_string(rc).decode()}")
-    LAUNCHES["pool_mag2"] += 1
-    return out

@@ -180,11 +180,13 @@ def test_tile_batch_env_override(monkeypatch):
     assert tdense.ResidentDensePredictor(tm, tp, device="cpu", **KW).tile_batch == 4
 
 
+@pytest.mark.parametrize("mode,thresholds", [("probs", (0.3, 0.7)), ("masks", (0.6, 0.45))])
 def test_oom_halves_the_batch_then_shrinks_the_tile(tmp_path, clean_store, monkeypatch,
-                                                    caplog):
+                                                    caplog, mode, thresholds):
     """A device OOM halves tile_batch down to 1, then shrinks the tile and
-    rebuilds; an OOM in the class-map reassembly skips the registration
-    (logged) and the outputs still reach the disk."""
+    rebuilds the predictor with the call's mode and thresholds; an OOM in
+    the class-map reassembly skips the registration (logged) and the
+    outputs still reach the disk."""
     import logging
 
     _, _, tm, tp = _models()
@@ -194,10 +196,11 @@ def test_oom_halves_the_batch_then_shrinks_the_tile(tmp_path, clean_store, monke
                          chunk_shape=(64, 64, 32)).save_raw(vol)
     assert clean_store.put(src, "raw", vol, device="cpu")
     real = tdense.DenseTilePredictor._forward
-    seen = []
+    seen, made = [], set()
 
     def flaky(self, x):
         seen.append((int(x.shape[0]), tuple(int(t) for t in self.tile_shape)))
+        made.add((seen[-1][1], self.mode, tuple(self._on[self._home][1].flatten().tolist())))
         if len(seen) > 1 and self.tile_shape[0] == 64:  # the first-dispatch probe passes
             raise torch.cuda.OutOfMemoryError("CUDA out of memory. Tried to allocate 8.00 GiB")
         return real(self, x)
@@ -210,15 +213,20 @@ def test_oom_halves_the_batch_then_shrinks_the_tile(tmp_path, clean_store, monke
     caplog.set_level(logging.WARNING, logger="syconn_tpu_torch.inference")
     stats = tdense.predict_dense_to_kd(
         src, {"mi": str(tmp_path / "mi")}, tm, tp, {"mi": 1}, tile_shape=(64, 64, 32),
-        halo=(8, 8, 8), target_mags=(1,), show_progress=False, device="cpu")
+        halo=(8, 8, 8), target_mags=(1,), show_progress=False, device="cpu", mode=mode,
+        thresholds=thresholds)
     # the probe; tile_batch 4 and 2 (both one batch of the two tiles), 1;
     # then the tile shrinks
     assert [b for b, ts in seen if ts == (64, 64, 32)] == [1, 2, 2, 1]
     assert stats["tile_shape"] == [32, 64, 32] and stats["route"] == "resident"
+    thr = tuple(np.asarray(thresholds, np.float32).tolist())
+    assert made == {((64, 64, 32), mode, thr), ((32, 64, 32), mode, thr)}
     assert stats["registered"] == [] and clean_store.get(str(tmp_path / "mi"), "raw") is None
     assert any("skipping resident registration" in r.message for r in caplog.records)
     out = ChunkedVolume.open(str(tmp_path / "mi")).load_raw(size=vol.shape)
     assert out.shape == vol.shape and int(out.max()) > int(out.min())
+    if mode == "masks":
+        assert set(np.unique(out).tolist()) == {0, 255}
     # the batch halving alone, on a volume of 4 tiles
     monkeypatch.setattr(tdense.DenseTilePredictor, "_forward",
                         lambda self, x: (_ for _ in ()).throw(torch.cuda.OutOfMemoryError(
