@@ -34,6 +34,14 @@ Phases, each failing the run on error:
      classes pooled and with (4, 4, 2) and 2, odd crops and a padding row
      included: each crop and class equal to the chunk store's host pooling,
      the padding row zero;
+  4c. the dense step's head kernel (``ops/head.py::dense_head``) against its
+     plain version on the card at both configurations' deployment crops
+     (organelles (128, 128, 64) patched positions of 4 classes x 8 patch
+     voxels, syntype (64, 64, 64) of 3 x 32; tile (256, 256, 128) + halo
+     (32, 32, 16), batch 4), probabilities byte for byte and masks with
+     per-class thresholds bit for bit, one launch a call; kernel and plain
+     ms a tile and the bound by bytes (the head's launches are checked per
+     dispatch in every slice below, as the conv kernels' are);
   5. the contact slice: ``run_contact_extraction`` over a seeded
      512x512x256 label volume, streaming (``CsDispatcher``, the CUDA kernel)
      and from the device-resident store; kernel launches equal the chunks,
@@ -212,6 +220,12 @@ POOL_SHAPES = [
     ("organelles", (2, 2, 2), 4, [1, 2, 3], [(256, 256, 128), (255, 13, 127), (0, 0, 0)]),
     ("syntype", (4, 4, 2), 3, [1, 2], [(256, 256, 128), (37, 255, 1), (0, 0, 0)]),
 ]
+# the dense step's head at the deployment tile + halo, batch 4 (the resident
+# route's tile batch): (configuration, classes, patch)
+HEAD_SOURCE = "syconn_tpu_torch/ops/csrc/head.cu"
+HEAD_HALO = (32, 32, 16)
+HEAD_BATCH = 4
+HEAD_SHAPES = [("organelles", 4, (2, 2, 2)), ("syntype", 3, (4, 4, 2))]
 REPLACES = {
     "conv3x3x3_ln_gelu": "syconn_tpu/ops/conv3d_pallas.py:71",
     "conv_down2x_bias": "syconn_tpu/ops/conv3d_pallas.py:394",
@@ -262,10 +276,13 @@ ORG_SHAPES = [
     ("conv3x3x3_ln_gelu", (4, 160, 160, 80), 32, 32, 32, "ln_gelu", 0),
     ("conv_down2x_bias", (4, 160, 160, 80), 32, 64, 0, "bias", 0),
 ]
-PER_TILE = {"syntype": {"conv3x3x3_ln_gelu": 10, "conv_down2x_bias": 2, "conv_transpose2x_bias": 2},
-            "myelin": {"conv3x3x3_ln_gelu": 6, "conv_down2x_bias": 1, "conv_transpose2x_bias": 1},
+# kernel launches of one dispatch: the U-Net's convs and one head
+PER_TILE = {"syntype": {"conv3x3x3_ln_gelu": 10, "conv_down2x_bias": 2, "conv_transpose2x_bias": 2,
+                        "dense_head": 1},
+            "myelin": {"conv3x3x3_ln_gelu": 6, "conv_down2x_bias": 1, "conv_transpose2x_bias": 1,
+                       "dense_head": 1},
             "organelles": {"conv3x3x3_ln_gelu": 6, "conv_down2x_bias": 1,
-                           "conv_transpose2x_bias": 1}}
+                           "conv_transpose2x_bias": 1, "dense_head": 1}}
 # step 2 (syconn_tpu/handler/default_config.yml:34, :82-128): deployment
 # chunk; per organelle the blob radii (x, y, z voxels at 10 x 10 x 20 nm),
 # grid spacing and pair separation (in x radii) of the seeded probability maps
@@ -586,6 +603,57 @@ def phase_pool(dev):
         log(f"pool {task}: patch {tuple(patch)}, classes {classes}, crops "
             f"{[tuple(e) for e in extents]} equal to the chunk store's host pooling")
         del x, got
+
+
+def phase_head(dev):
+    """Phase 4c: the dense step's head kernel against its plain version on
+    the card at both configurations' deployment crops, batch 4, in both
+    modes: equal byte for byte (probabilities) and bit for bit (masks), one
+    launch a call. Returns one row a configuration and mode."""
+    import numpy as np
+    import torch
+
+    from syconn_tpu_torch.ops import head as H
+    from syconn_tpu_torch.ops.conv3d import LAUNCHES, reset_launch_counts
+
+    bits = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+    for task, n_cls, patch in HEAD_SHAPES:
+        p = np.asarray(patch)
+        tsp, hp = np.asarray(POOL_TILE) // p, np.asarray(HEAD_HALO) // p
+        pvox = int(p.prod())
+        lg = 4.0 * torch.randn((HEAD_BATCH, *(tsp + 2 * hp), n_cls * pvox), generator=gen,
+                               device=dev)
+        thr = torch.linspace(0.3, 0.7, n_cls, device=dev)[:, None].contiguous()
+        for mode in ("probs", "masks"):
+            args = (lg, hp, tsp, n_cls, pvox, mode, thr, bits)
+            reset_launch_counts()
+            got = H.dense_head(*args)
+            launches = LAUNCHES["dense_head"]
+            ref = H.dense_head_ref(*args)
+            d = (got.int() - ref.int()).abs()
+            err, off = int(d.max()), int((d > 0).sum())
+            if launches != 1 or got.shape != ref.shape or off:
+                raise AssertionError(f"head {task} {mode}: {launches} launches, shape "
+                                     f"{tuple(got.shape)} against {tuple(ref.shape)}, {off} "
+                                     f"bytes off the plain version (at most {err})")
+            del got, ref, d
+            vox = int(tsp.prod()) * n_cls * pvox
+            nbytes = vox * 4 + (vox if mode == "probs" else vox // 8)
+            k_ms = cuda_ms(lambda: H.dense_head(*args)) / HEAD_BATCH
+            p_ms = cuda_ms(lambda: H.dense_head_ref(*args), warmup=1, reps=3, inner=2) / HEAD_BATCH
+            row = dict(name="dense_head", task=task, mode=mode, batch=HEAD_BATCH,
+                       logits=list(lg.shape), crop=[int(v) for v in tsp], launches=launches,
+                       max_abs_err=err, kernel_ms=k_ms, plain_ms=p_ms, library_ms=None,
+                       library_note="no single PyTorch call computes this function",
+                       bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes", bound_bytes=nbytes,
+                       bound_share=nbytes / PEAK_BYTES * 1e3 / k_ms)
+            rows.append(row)
+            log("kernel " + json.dumps(row))
+        del lg
+        torch.cuda.empty_cache()
+    return rows
 
 
 def check_mag2_is_host_pooling(what: str, path: str, shape, work: str) -> None:
@@ -3024,7 +3092,7 @@ def phase_slice_driver(dev, work: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(LAUNCHES)
-        for k in REPLACES:
+        for k in (*REPLACES, "dense_head"):
             want = sum(stats[t]["dispatches"] * PER_TILE[t][k] for t in ("organelles", "myelin"))
             if want <= 0 or counts[k] != want:
                 raise AssertionError(f"driver {what}: {k} launched {counts[k]} times, expected "
@@ -3976,7 +4044,7 @@ def _sharded_dense(dev, work, devs, shape=None):
         st, secs[mode] = _timed_run(dev, lambda: predict_dense_to_kd(
             os.path.join(work, "raw"), targets, model, params, chans, target_mags=(1,),
             show_progress=False, batch_size=b, device=dev, mesh=mesh, **SHARD_TILE))
-        counts = {k: LAUNCHES[k] for k in REPLACES}
+        counts = {k: LAUNCHES[k] for k in PER_TILE["syntype"]}
         if st["route"] != "stream":
             raise AssertionError(f"sharded dense {mode}: took the {st['route']} route")
         for k, per in PER_TILE["syntype"].items():
@@ -4404,7 +4472,7 @@ def phase_slice_sharded(dev, work: str) -> dict:
     from syconn_tpu_torch.io import resident
 
     resident.clear()
-    launches = {k: 0 for k in list(REPLACES) + ["detect_cs_columns"]}
+    launches = {k: 0 for k in list(REPLACES) + ["dense_head", "detect_cs_columns"]}
     for label, devs in _shard_meshes(dev):
         t0 = time.perf_counter()
         log(f"slice sharded mesh {label}: {len(devs)} positions on "
@@ -4420,6 +4488,7 @@ def phase_slice_sharded(dev, work: str) -> dict:
         launches["detect_cs_columns"] += n_cs
         for k in REPLACES:
             launches[k] += conv[k] + spatial_conv[k]
+        launches["dense_head"] += conv["dense_head"]
         what = ("logical-shard overhead on one card" if label == "logical"
                 else f"{len(devs)} cards")
         log(f"slice sharded seconds ({what}) " + json.dumps(
@@ -4616,6 +4685,7 @@ def main() -> int:
     phase_repack(dev)
     contact_rows = phase_contact_kernels(dev)
     phase_pool(dev)
+    head_rows = phase_head(dev)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         phase_reference(dev)
@@ -4645,7 +4715,7 @@ def main() -> int:
             launches[k] += train_launches[k]
         t_pipe = time.perf_counter()
         pipe_launches = phase_slice_pipeline(dev, work)
-        for k in REPLACES:
+        for k in (*REPLACES, "dense_head"):
             launches[k] += pipe_launches[k]
         contacts["launches"] += pipe_launches["detect_cs_columns"]
         log(f"slice pipeline phase {time.perf_counter() - t_pipe:.3f} s")
@@ -4657,12 +4727,12 @@ def main() -> int:
         log(f"views phase {time.perf_counter() - t_views:.3f} s")
         t_cells = time.perf_counter()
         cells_launches = phase_slice_cells(dev, work, points["glia_pts"]["forward_ms"])
-        for k in REPLACES:
+        for k in (*REPLACES, "dense_head"):
             launches[k] += cells_launches[k]
         log(f"slice cells phase {time.perf_counter() - t_cells:.3f} s")
         t_syn = time.perf_counter()
         syn_launches = phase_slice_synapses(dev, work)
-        for k in REPLACES:
+        for k in (*REPLACES, "dense_head"):
             launches[k] += syn_launches[k]
         contacts["launches"] += syn_launches["detect_cs_columns"]
         log(f"slice synapses phase {time.perf_counter() - t_syn:.3f} s")
@@ -4674,7 +4744,7 @@ def main() -> int:
         log(f"slice views phase {time.perf_counter() - t_views:.3f} s")
         t_driver = time.perf_counter()
         driver_launches = phase_slice_driver(dev, work)
-        for k in REPLACES:
+        for k in (*REPLACES, "dense_head"):
             launches[k] += driver_launches[k]
         contacts["launches"] += driver_launches["detect_cs_columns"]
         log(f"slice driver phase {time.perf_counter() - t_driver:.3f} s")
@@ -4688,7 +4758,7 @@ def main() -> int:
         log(f"slice analysis phase {time.perf_counter() - t_analysis:.3f} s")
         t_sharded = time.perf_counter()
         sharded_launches = phase_slice_sharded(dev, work)
-        for k in REPLACES:
+        for k in (*REPLACES, "dense_head"):
             launches[k] += sharded_launches[k]
         contacts["launches"] += sharded_launches["detect_cs_columns"]
         log(f"slice sharded phase {time.perf_counter() - t_sharded:.3f} s")
@@ -4728,6 +4798,12 @@ def main() -> int:
         launches=contacts["launches"], max_abs_err=max(r["max_abs_err"] for r in contact_rows),
         ms=crow["kernel_ms"], plain_ms=crow["plain_ms"], bound_ms=crow["bound_ms"],
         bound_by=crow["bound_by"], library_ms=None))
+    hrow = next(r for r in head_rows if r["task"] == "syntype" and r["mode"] == "probs")
+    kernels.append(dict(
+        name="dense_head", route="cuda", source=HEAD_SOURCE, replaces=None,
+        launches=launches["dense_head"], max_abs_err=max(r["max_abs_err"] for r in head_rows),
+        ms=hrow["kernel_ms"], plain_ms=hrow["plain_ms"], bound_ms=hrow["bound_ms"],
+        bound_by="bytes", library_ms=None))
     log(f"whole run {time.perf_counter() - t_all:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -8,9 +8,12 @@ per-class outputs written to target chunked volumes.
 
 Execution model:
 * a dispatch/fetch pipeline on one CUDA stream: a tile's upload (pinned
-  memory), forward, softmax/threshold and download are enqueued without
-  blocking, and the host waits only on that tile's download event, so the
-  card computes tile i+1 while the host unpacks and writes tile i;
+  memory), forward, head and download are enqueued without blocking, and
+  the host waits only on that tile's download event, so the card computes
+  tile i+1 while the host unpacks and writes tile i;
+* the head after the engine (crop of the halo, class softmax, quantise or
+  threshold and bit-pack) is one kernel on the card (``ops.head``), which
+  reads each cropped logit once;
 * host threads prefetch source tiles and write results;
 * two output modes: ``probs`` (uint8 softmax probabilities) and ``masks``
   (thresholded on the card and bit-packed 1 bit/voxel along the patch
@@ -50,6 +53,7 @@ from ..io import resident
 from ..io.chunked import ChunkedVolume
 from ..models.convert import params_from_flax
 from ..models.unet_engine import engine_supported, unet_apply_packed
+from ..ops.head import dense_head
 from ..ops.pool import pool_mag2
 from ..parallel.device import canonical_device, data_sharding, gather, on_device, place
 from ..parallel.sharded import mesh_from_config
@@ -179,22 +183,18 @@ class DenseTilePredictor:
     def _forward_on(self, x: torch.Tensor, params: dict, thr: torch.Tensor,
                     bit_weights: torch.Tensor) -> torch.Tensor:
         """One device's forward; ``params``, ``thr``, ``bit_weights`` on x's
-        device."""
+        device. The head (crop, class softmax, quantise or threshold and
+        bit-pack) is ``ops.head.dense_head``: one kernel on the card, its
+        plain version on the CPU."""
         tsp = self.tile_shape // self.patch
         hp = self.halo // self.patch
         b = int(x.shape[0])
         with tracing.span("engine.forward", device=x.device, batch=b):
             lg = unet_apply_packed(self.model, params, x[..., None])
-        with tracing.span("engine.head", device=x.device, batch=b):
-            lg = lg[:, hp[0]:hp[0] + tsp[0], hp[1]:hp[1] + tsp[1], hp[2]:hp[2] + tsp[2], :]
-            b, sx, sy, sz, _ = lg.shape
-            C = self.n_classes
-            probs = torch.softmax(lg.reshape(b, sx, sy, sz, C, self._pvox), dim=-2)
-            if self.mode == "probs":
-                out = torch.round(probs * 255.0).to(torch.uint8)
-                return out.reshape(b, sx, sy, sz, C * self._pvox)
-            fg = (probs >= thr).reshape(b, sx, sy, sz, C * self._pvox // 8, 8)
-            return (fg.to(torch.uint8) * bit_weights).sum(-1, dtype=torch.uint8)
+        # the kernel sets fused_tiles to the tiles it took
+        with tracing.span("engine.head", device=x.device, batch=b, fused_tiles=0):
+            return dense_head(lg, hp, tsp, self.n_classes, self._pvox, self.mode, thr,
+                              bit_weights)
 
     # ------------------------------------------------------------- pipeline
     def dispatch(self, x: np.ndarray, extents=None, classes: Optional[Sequence[int]] = None):

@@ -50,6 +50,10 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
         "detect_cs_columns_launch": ([_P] * 5 + [_I] * 10 + [_P], _I),
         "contacts_error_string": ([_I], ctypes.c_char_p),
     },
+    "head": {
+        "dense_head_launch": ([_P] * 3 + [_I] * 15 + [_P], _I),
+        "dense_head_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

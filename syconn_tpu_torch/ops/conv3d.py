@@ -43,6 +43,7 @@ LAUNCHES: Dict[str, int] = {
     "conv_down2x_bias": 0,
     "conv_transpose2x_bias": 0,
     "detect_cs_columns": 0,  # ops/contacts_cuda.py
+    "dense_head": 0,  # ops/head.py
 }
 
 _MODE_SAME, _MODE_DOWN, _MODE_UP = 0, 1, 2

@@ -1,6 +1,6 @@
 """Helpers of the port's tests (not a test module): the port's working
-directory, and exact comparison of the datasets two working directories
-hold."""
+directory, exact comparison of the datasets two working directories
+hold, and the dense head's logits."""
 
 import contextlib
 import glob
@@ -8,6 +8,7 @@ import os
 import pickle
 
 import numpy as np
+import torch
 
 from syconn_tpu_torch import global_params as tparams
 
@@ -168,3 +169,27 @@ def build_jax_sso_world(root, cells_dir=None):
             global_params.wd = prev
             clear_kd_cache()
     return wd
+
+
+def head_logits(batch, tile_shape, halo, patch, n_classes, seed, kind="normal"):
+    """Haloed packed f32 logits of the dense head (``ops/head.py``), as the
+    engine writes them, from numpy: normal(0, 4), magnitudes up to 80, equal
+    logits across the classes, or logits that put p * 255 on a half (class 0
+    at 0, class 1 at ln(p / (1 - p)) with p = (k + 0.5) / 255 for a random k,
+    the rest far below: ties to even or rounding on either side of one)."""
+    sp = (np.asarray(tile_shape) + 2 * np.asarray(halo)) // np.asarray(patch)
+    pvox = int(np.prod(patch))
+    rng = np.random.default_rng(seed)
+    shape = (batch, *sp, n_classes, pvox)
+    if kind == "normal":
+        x = 4.0 * rng.standard_normal(shape)
+    elif kind == "large":
+        x = rng.uniform(-80.0, 80.0, shape)
+    elif kind == "equal":
+        x = np.broadcast_to(rng.uniform(-80.0, 80.0, shape[:4] + (1, pvox)), shape)
+    else:
+        p = (rng.integers(1, 254, shape[:4] + (pvox,)) + 0.5) / 255.0
+        x = np.full(shape, -200.0)
+        x[..., 0, :] = 0.0
+        x[..., 1, :] = np.log(p / (1.0 - p))
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).reshape(*shape[:4], -1)

@@ -140,10 +140,92 @@ def test_predictor_kernel_path_matches_cpu_path(dev):
     C.reset_launch_counts()
     got = DenseTilePredictor(model, params, device=dev, **kw).predict_array(vol)
     assert C.LAUNCHES == {"conv3x3x3_ln_gelu": 10, "conv_down2x_bias": 2,
-                          "conv_transpose2x_bias": 2, "detect_cs_columns": 0}
+                          "conv_transpose2x_bias": 2, "detect_cs_columns": 0, "dense_head": 1}
     ref = DenseTilePredictor(model, params, device="cpu", **kw).predict_array(vol)
     d = np.abs(got.astype(np.int16) - ref.astype(np.int16))
     assert np.mean(d <= 2) >= 0.999
+
+
+def test_head_span_counts_the_kernels_tiles(dev):
+    """The ``engine.head`` span's ``fused_tiles`` is the batch the head
+    kernel took."""
+    from syconn_tpu_torch.inference.dense import DenseTilePredictor
+    from syconn_tpu_torch.models.io import load_model, packaged_model_path
+    from syconn_tpu_torch.utils import tracing
+
+    model, params = load_model(packaged_model_path("syntype"))
+    pred = DenseTilePredictor(model, params, tile_shape=(64, 64, 32), halo=(8, 8, 4),
+                              batch_size=2, mode="probs", device=dev)
+    x = torch.randint(0, 256, pred._in_shape, dtype=torch.uint8, device=dev)
+    tracing.clear()
+    C.reset_launch_counts()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        pred._forward(x)
+        torch.cuda.synchronize()
+    heads = [r for r in tracing.records() if r["name"] == "engine.head"]
+    tracing.clear()
+    assert C.LAUNCHES["dense_head"] == 1
+    assert [r["attrs"]["fused_tiles"] for r in heads] == [2]
+
+
+# (n_classes, tile, halo, patch): both configurations' patches with a halo on
+# every side and unequal extents; myelin's (2, 32) and patch 1 take the
+# kernel's generic loop; the long run is cut into two pieces (85 + 15
+# positions), whose masks bytes are not 16-byte aligned
+HEAD_CASES = {
+    "organelles": (4, (64, 48, 40), (8, 4, 6), (2, 2, 2)),
+    "syntype": (3, (48, 64, 24), (4, 8, 2), (4, 4, 2)),
+    "syntype_long_run": (3, (8, 12, 200), (4, 4, 4), (4, 4, 2)),
+    "myelin": (2, (32, 48, 16), (8, 4, 4), (4, 4, 2)),
+    "patch1": (8, (12, 10, 14), (1, 2, 3), (1, 1, 1)),
+}
+
+
+def _head_args(dev, name, batch, kind):
+    from _torch_helpers import head_logits
+
+    n_classes, tile, halo, patch = HEAD_CASES[name]
+    lg = head_logits(batch, tile, halo, patch, n_classes, seed=sum(map(ord, name)), kind=kind)
+    thr = torch.tensor(np.linspace(0.3, 0.7, n_classes, dtype=np.float32)[:, None])
+    bits = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.uint8)
+    hp = np.asarray(halo) // np.asarray(patch)
+    tsp = np.asarray(tile) // np.asarray(patch)
+    return lg.to(dev), hp, tsp, n_classes, int(np.prod(patch)), thr.to(dev), bits.to(dev)
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("kind", ["normal", "large", "equal", "half"])
+@pytest.mark.parametrize("mode", ["probs", "masks"])
+@pytest.mark.parametrize("name", list(HEAD_CASES))
+def test_head_kernel_matches_plain_version(dev, name, mode, kind, batch):
+    """The head kernel against its plain version on the card: probabilities
+    byte for byte, masks bit for bit, per-class thresholds, logits up to
+    +-80, equal across the classes, or putting p * 255 on a half."""
+    from syconn_tpu_torch.ops import head as H
+
+    lg, hp, tsp, n_classes, pvox, thr, bits = _head_args(dev, name, batch, kind)
+    C.reset_launch_counts()
+    got = H.dense_head(lg, hp, tsp, n_classes, pvox, mode, thr, bits)
+    ref = H.dense_head_ref(lg, hp, tsp, n_classes, pvox, mode, thr, bits)
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["dense_head"] == 1
+    assert got.is_cuda and got.dtype == torch.uint8 and got.is_contiguous()
+    assert got.shape == ref.shape
+    d = (got.int() - ref.int()).abs()
+    off = int((d > 0).sum())
+    assert off == 0, f"{off} of {d.numel()} bytes off the plain head, at most {int(d.max())}"
+
+
+def test_head_kernel_rejects_what_it_does_not_take(dev):
+    from syconn_tpu_torch.ops import head as H
+
+    lg, hp, tsp, n_classes, pvox, thr, bits = _head_args(dev, "organelles", 1, "normal")
+    with pytest.raises(ValueError, match="f32"):
+        H.dense_head(lg.half(), hp, tsp, n_classes, pvox)
+    with pytest.raises(ValueError, match="f32"):
+        H.dense_head(lg[:, :, :, 1:], hp, tsp, n_classes, pvox)  # not contiguous
+    with pytest.raises(ValueError, match="thr"):
+        H.dense_head(lg, hp, tsp, n_classes, pvox, "masks", thr[:2], bits)
 
 
 @pytest.mark.parametrize("tile,patch,extents", [

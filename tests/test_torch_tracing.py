@@ -19,7 +19,7 @@ from syconn_tpu_torch.utils import tracing
 
 SPANS = {
     "dense.predict": {"route"}, "dense.unpack": set(), "engine.forward": {"batch"},
-    "engine.head": {"batch"}, "predictor.build": {"replicas"}, "resident.predict": {"tiles"},
+    "engine.head": {"batch", "fused_tiles"}, "predictor.build": {"replicas"}, "resident.predict": {"tiles"},
     "resident.stack": {"tiles"}, "resident.concat": {"tiles"}, "resident.reassembly": {"channel"},
     "chunk.load": {"mag"}, "chunk.save": {"mags"}, "chunk.downsample": {"mag", "mode", "voxels"},
     "chunk.lock_wait": set(), "chunk.rmw_read": set(),
@@ -135,6 +135,9 @@ def test_spans_with_parent_thread_and_call(tmp_path, clean):
         assert sorted(w["attrs"]["pieces"] for w in writes) == [1] * 16 + [8] * 2
         assert not any(w["attrs"]["early"] for w in writes)
     assert next(r for r in recs if r["name"] == "resident.predict")["attrs"]["tiles"] == 8
+    # the CPU runs the plain head: no tile through the head kernel
+    heads = [r for r in recs if r["name"] == "engine.head"]
+    assert heads and all(r["attrs"]["fused_tiles"] == 0 for r in heads)
 
 
 def test_span_starts_on_the_profilers_clock(tmp_path, clean):
