@@ -42,6 +42,21 @@ Phases, each failing the run on error:
      per-class thresholds bit for bit, one launch a call; kernel and plain
      ms a tile and the bound by bytes (the head's launches are checked per
      dispatch in every slice below, as the conv kernels' are);
+  4d. nnU-Net's kernels and conv forms alone at the nnunet_fullres cell's
+     sizes (128^3 windows, batch 4): the instance norm + LeakyReLU
+     (``ops/instnorm.py``) at the full-resolution 32 channels, the (1, 1)-
+     padded stride-2 conv 32 -> 64, the Cout-320 SAME conv at 8^3 and the
+     kernel-2 stride-2 transpose 64 -> 32, each against its plain version
+     (the norm within one bf16 step, the convs at the conv tolerance), one
+     launch a call (two for the norm's kernel pair), with kernel, plain and
+     library ms and the bound;
+  4e. nnU-Net 3d_fullres on its main path: the nnunet_fullres
+     configuration through ``ResidentDensePredictor`` (128^3 windows, tile
+     batch 4, probs) over a volume of six tiles; launches per dispatch
+     (``PER_TILE``), every conv on the wgmma kernel and 22 norms in the
+     profiler's trace, and the class maps against the plain float32
+     reference (``models/nnunet_ref.py``) run window by window (the mean
+     uint8 gap at the CPU test's limit, the largest at the cell's); the kernels line's ``instance_norm`` launches are this slice's;
   5. the contact slice: ``run_contact_extraction`` over a seeded
      512x512x256 label volume, streaming (``CsDispatcher``, the CUDA kernel)
      and from the device-resident store; kernel launches equal the chunks,
@@ -226,6 +241,13 @@ HEAD_SOURCE = "syconn_tpu_torch/ops/csrc/head.cu"
 HEAD_HALO = (32, 32, 16)
 HEAD_BATCH = 4
 HEAD_SHAPES = [("organelles", 4, (2, 2, 2)), ("syntype", 3, (4, 4, 2))]
+INSTNORM_SOURCE = "syconn_tpu_torch/ops/csrc/instnorm.cu"
+# phase 4d: (form, x shape (B, X, Y, Z, Cin), Cout) at the nnunet_fullres cell's
+# sizes, one of each form the U-Net does not run
+NNUNET_FORMS = [("instance_norm", (4, 128, 128, 128, 32), 32),
+                ("down_pad", (4, 128, 128, 128, 32), 64),
+                ("same_320", (4, 8, 8, 8, 320), 320),
+                ("up2", (4, 64, 64, 64, 64), 32)]
 REPLACES = {
     "conv3x3x3_ln_gelu": "syconn_tpu/ops/conv3d_pallas.py:71",
     "conv_down2x_bias": "syconn_tpu/ops/conv3d_pallas.py:394",
@@ -282,7 +304,24 @@ PER_TILE = {"syntype": {"conv3x3x3_ln_gelu": 10, "conv_down2x_bias": 2, "conv_tr
             "myelin": {"conv3x3x3_ln_gelu": 6, "conv_down2x_bias": 1, "conv_transpose2x_bias": 1,
                        "dense_head": 1},
             "organelles": {"conv3x3x3_ln_gelu": 6, "conv_down2x_bias": 1,
-                           "conv_transpose2x_bias": 1, "dense_head": 1}}
+                           "conv_transpose2x_bias": 1, "dense_head": 1},
+            # nnU-Net: 17 SAME convs (the stem, each lower stage's stride-1
+            # conv, both convs of each decoder level), 5 padded stride-2 convs,
+            # 5 k2 s2 transposes, 22 norms of two launches, one head
+            "nnunet_fullres": {"conv3x3x3_ln_gelu": 17, "conv_down2x_bias": 5,
+                               "conv_transpose2x_bias": 0, "conv_transpose2x2_bias": 5,
+                               "instance_norm": 44, "dense_head": 1}}
+# phase 4e: the nnunet_fullres cell's tiling (tile + halo = the 128^3 patch,
+# tile batch 4, probs) on a volume of six tiles, so two dispatches, the second
+# with two empty rows; its probabilities are held to the plain reference's
+# tiling: the mean uint8 gap at the CPU test's limit (tests/test_torch_nnunet.py),
+# the largest at the cell's calibrated one (perfbench/limits/), since the worst
+# voxel grows with the voxels compared (3 steps at the CPU test's size, 7 over
+# these six windows on an H100, 10-19 over the cell's 16 judged windows)
+NNUNET_CONFIG = "perfbench/configs/nnunet_fullres.json"
+NNUNET_LIMITS = "perfbench/limits/nnunet_fullres.device.json"
+NNUNET_TILE, NNUNET_HALO, NNUNET_VOLUME = (96, 96, 96), (16, 16, 16), (288, 192, 96)
+NNUNET_LSB_MEAN = 0.6
 # step 2 (syconn_tpu/handler/default_config.yml:34, :82-128): deployment
 # chunk; per organelle the blob radii (x, y, z voxels at 10 x 10 x 20 nm),
 # grid spacing and pair separation (in x radii) of the seeded probability maps
@@ -654,6 +693,177 @@ def phase_head(dev):
         del lg
         torch.cuda.empty_cache()
     return rows
+
+
+def phase_nnunet(dev):
+    """Phase 4d: nnU-Net's kernels and conv forms alone at the cell's sizes
+    against their plain versions, timed. Returns one row a form."""
+    import torch
+    import torch.nn.functional as F
+
+    from syconn_tpu_torch.ops import conv3d as C
+    from syconn_tpu_torch.ops import instnorm as IN
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    rows = []
+    for form, shape, cout in NNUNET_FORMS:
+        cin = shape[-1]
+        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        taps = 8 if form == "up2" else 27
+        w = (torch.randn((taps, cin, cout), generator=gen, device=dev) / (taps * cin) ** 0.5).to(
+            torch.bfloat16)
+        b = (0.1 * torch.randn((cout,), generator=gen, device=dev)).to(torch.bfloat16)
+        g = 1 + 0.1 * torch.randn((cout,), generator=gen, device=dev)
+        beta = 0.1 * torch.randn((cout,), generator=gen, device=dev)
+        xc = x.permute(0, 4, 1, 2, 3)
+        s_in = shape[0] * shape[1] * shape[2] * shape[3]
+        if form == "instance_norm":
+            kern = lambda: IN.instance_norm_lrelu(x, g, beta)  # noqa: E731
+            plain = lambda: IN.instance_norm_lrelu_ref(x, g, beta)  # noqa: E731
+            lib = lambda: F.leaky_relu(F.instance_norm(xc, weight=g, bias=beta, eps=1e-5),  # noqa: E731
+                                       0.01)
+            flops, nbytes, per_call = 0, 2 * s_in * cin * 2 + 2 * cin * 4, 2
+        elif form == "down_pad":
+            kern = lambda: C.conv_down2x_bias(x, w, b, pad_lo=1)  # noqa: E731
+            plain = lambda: C.conv_down2x_bias_ref(x, w, b, 1)  # noqa: E731
+            wl = w.reshape(3, 3, 3, cin, cout).permute(4, 3, 0, 1, 2).contiguous(
+                memory_format=torch.channels_last_3d)
+            lib = lambda: F.conv3d(xc, wl, stride=2, padding=1)  # noqa: E731
+            flops = 2 * 27 * s_in // 8 * cin * cout
+            nbytes, per_call = s_in * cin * 2 + w.numel() * 2 + cout * 2 + s_in // 8 * cout * 2, 1
+        elif form == "same_320":
+            kern = lambda: C.conv3x3x3_ln_gelu(x, w, b, epilogue="bias")  # noqa: E731
+            plain = lambda: C.conv3x3x3_ln_gelu_ref(x, w, b, epilogue="bias")  # noqa: E731
+            wl = w.reshape(3, 3, 3, cin, cout).permute(4, 3, 0, 1, 2).contiguous(
+                memory_format=torch.channels_last_3d)
+            lib = lambda: F.conv3d(xc, wl, padding=1)  # noqa: E731
+            flops = 2 * 27 * s_in * cin * cout
+            nbytes, per_call = s_in * cin * 2 + w.numel() * 2 + cout * 2 + s_in * cout * 2, 1
+        else:
+            kern = lambda: C.conv_transpose2x2_bias(x, w, b)  # noqa: E731
+            plain = lambda: C.conv_transpose2x2_bias_ref(x, w, b)  # noqa: E731
+            wt = w.reshape(2, 2, 2, cin, cout).permute(3, 4, 0, 1, 2).contiguous()
+            lib = lambda: F.conv_transpose3d(xc, wt, stride=2)  # noqa: E731
+            flops = 2 * s_in * cin * 8 * cout
+            nbytes = s_in * cin * 2 + w.numel() * 2 + cout * 2 + 8 * s_in * cout * 2
+            per_call = 1
+        C.reset_launch_counts()
+        got = kern()
+        torch.cuda.synchronize()
+        launches = sum(C.LAUNCHES.values())
+        ref = plain()
+        if launches != per_call or got.shape != ref.shape:
+            raise AssertionError(f"nnunet {form}: {launches} launches, shape "
+                                 f"{tuple(got.shape)} against {tuple(ref.shape)}")
+        if form == "instance_norm":
+            d = (got.float() - ref.float()).abs()
+            step = ref.float().abs().clamp_min(1e-2) * 2.0 ** -7
+            if not bool((d <= step).all()):
+                raise AssertionError(f"nnunet {form}: {float((d / step).max()):.3f} bf16 steps "
+                                     "off the plain version")
+            err, med, frac = float(d.max()), None, None
+        else:
+            err, med, frac = rel_check(got, ref, f"nnunet {form}")
+        del got, ref
+        k_ms = cuda_ms(kern)
+        p_ms = cuda_ms(plain, warmup=1, reps=3, inner=2)
+        l_ms = cuda_ms(lib)
+        bound_f, bound_b = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        row = dict(name=form, task="nnunet_fullres", shape=list(shape), cout=cout,
+                   launches=launches, max_abs_err=err, median_rel=med, frac_rel_gt_0p1=frac,
+                   kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                   bound_ms=max(bound_f, bound_b),
+                   bound_by="operations" if bound_f >= bound_b else "bytes",
+                   bound_share=max(bound_f, bound_b) / k_ms)
+        rows.append(row)
+        log("kernel " + json.dumps(row))
+        del x, w, xc
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_slice_nnunet(dev) -> dict:
+    """Phase 4e: nnU-Net 3d_fullres through ``ResidentDensePredictor`` on the
+    card, as the cell runs it: the launches of each dispatch, and the class
+    maps against the plain float32 reference run window by window. Returns
+    the launch counts."""
+    import numpy as np
+    import torch
+
+    from syconn_tpu_torch.inference.dense import ResidentDensePredictor
+    from syconn_tpu_torch.models.nnunet import NNUNet
+    from syconn_tpu_torch.models.nnunet_ref import PlainConvUNetRef
+    from syconn_tpu_torch.ops.conv3d import LAUNCHES, reset_launch_counts
+
+    with open(os.path.join(ROOT, NNUNET_CONFIG)) as f:
+        model = NNUNet.from_arch(json.load(f)["arch"])
+    params = model.init_params(15)
+    g = torch.Generator(device=dev).manual_seed(16)
+    vol = torch.randint(0, 256, NNUNET_VOLUME, generator=g, device=dev, dtype=torch.uint8)
+    pred = ResidentDensePredictor(model, params, tile_shape=NNUNET_TILE, halo=NNUNET_HALO,
+                                  mode="probs", device=dev)
+    pred.predict_volume_packed(vol)     # builds and warms every shape
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    n0 = pred.n_forward
+    t0 = time.perf_counter()
+    packed, grid = pred.predict_volume_packed(vol)
+    maps = torch.stack([pred.class_volume_device(packed, grid, c, NNUNET_VOLUME)
+                        for c in range(model.n_classes)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    dispatches = pred.n_forward - n0
+    for k, per in PER_TILE["nnunet_fullres"].items():
+        if counts[k] != dispatches * per:
+            raise AssertionError(f"nnunet_fullres: {k} launched {counts[k]} times, expected "
+                                 f"{dispatches} dispatches x {per}")
+    if dispatches != 2 or tuple(grid) != (3, 2, 1):
+        raise AssertionError(f"nnunet_fullres: {dispatches} dispatches over the grid {grid}")
+    # every conv and transpose on the wgmma kernel, none on the mma.sync one
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        pred.predict_volume_packed(vol)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    traced = {k: sum(k in n for n in names) for k in ("conv3d_wgmma_kernel", "conv3d_kernel",
+                                                      "instnorm_stats_kernel",
+                                                      "instnorm_apply_kernel")}
+    if traced != {"conv3d_wgmma_kernel": 27 * dispatches, "conv3d_kernel": 0,
+                  "instnorm_stats_kernel": 22 * dispatches,
+                  "instnorm_apply_kernel": 22 * dispatches}:
+        raise AssertionError(f"nnunet_fullres: traced kernels {traced} over {dispatches} "
+                             "dispatches")
+    ref = PlainConvUNetRef(model).load_params(params).to(dev)
+    ts, h = np.array(NNUNET_TILE), np.array(NNUNET_HALO)
+    padded = torch.nn.functional.pad(vol, (h[2], h[2], h[1], h[1], h[0], h[0]))
+    gap_sum, gap_max = 0.0, 0
+    for gx in range(grid[0]):
+        for gy in range(grid[1]):
+            for gz in range(grid[2]):
+                o = np.array([gx, gy, gz]) * ts
+                w = padded[o[0]:o[0] + ts[0] + 2 * h[0], o[1]:o[1] + ts[1] + 2 * h[1],
+                           o[2]:o[2] + ts[2] + 2 * h[2]]
+                lg = ref(w)[:, h[0]:h[0] + ts[0], h[1]:h[1] + ts[1], h[2]:h[2] + ts[2]]
+                want = torch.round(torch.softmax(lg, 0) * 255.0)
+                got = maps[:, o[0]:o[0] + ts[0], o[1]:o[1] + ts[1], o[2]:o[2] + ts[2]].float()
+                d = (got - want).abs()
+                gap_sum += float(d.sum())
+                gap_max = max(gap_max, int(d.max()))
+    gap_mean = gap_sum / maps.numel()
+    with open(os.path.join(ROOT, NNUNET_LIMITS)) as f:
+        lsb_max = json.load(f)["max_abs_lsb"]
+    if gap_mean >= NNUNET_LSB_MEAN or gap_max > lsb_max:
+        raise AssertionError(f"nnunet_fullres: probabilities {gap_mean:.4f} steps off the plain "
+                             f"reference on average, {gap_max} at most")
+    res = dict(volume=list(NNUNET_VOLUME), tiles=int(np.prod(grid)), dispatches=dispatches,
+               seconds=seconds, launches={k: counts[k] for k in PER_TILE["nnunet_fullres"]},
+               traced=traced,
+               lsb_mean=gap_mean, lsb_max=gap_max)
+    log("slice nnunet_fullres " + json.dumps(res))
+    del pred, packed, maps, ref, vol, padded
+    torch.cuda.empty_cache()
+    return res["launches"]
 
 
 def check_mag2_is_host_pooling(what: str, path: str, shape, work: str) -> None:
@@ -4686,6 +4896,8 @@ def main() -> int:
     contact_rows = phase_contact_kernels(dev)
     phase_pool(dev)
     head_rows = phase_head(dev)
+    nnunet_rows = phase_nnunet(dev)
+    nnunet_launches = phase_slice_nnunet(dev)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         phase_reference(dev)
@@ -4804,6 +5016,13 @@ def main() -> int:
         launches=launches["dense_head"], max_abs_err=max(r["max_abs_err"] for r in head_rows),
         ms=hrow["kernel_ms"], plain_ms=hrow["plain_ms"], bound_ms=hrow["bound_ms"],
         bound_by="bytes", library_ms=None))
+    nrow = next(r for r in nnunet_rows if r["name"] == "instance_norm")
+    kernels.append(dict(
+        name="instance_norm", route="cuda", source=INSTNORM_SOURCE, replaces=None,
+        launches=nnunet_launches["instance_norm"], max_abs_err=nrow["max_abs_err"],
+        ms=nrow["kernel_ms"],
+        plain_ms=nrow["plain_ms"], bound_ms=nrow["bound_ms"], bound_by=nrow["bound_by"],
+        library_ms=nrow["library_ms"]))
     log(f"whole run {time.perf_counter() - t_all:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

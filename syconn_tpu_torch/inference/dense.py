@@ -51,8 +51,8 @@ import torch.nn.functional as F
 
 from ..io import resident
 from ..io.chunked import ChunkedVolume
+from ..models import nnunet_engine, unet_engine
 from ..models.convert import params_from_flax
-from ..models.unet_engine import engine_supported, unet_apply_packed
 from ..ops.head import dense_head
 from ..ops.pool import pool_mag2
 from ..parallel.device import canonical_device, data_sharding, gather, on_device, place
@@ -62,7 +62,7 @@ from ..utils.device import default_device
 
 log = logging.getLogger("syconn_tpu_torch.inference")
 
-__all__ = ["DenseTilePredictor", "ResidentDensePredictor", "predict_dense_to_kd",
+__all__ = ["DenseTilePredictor", "ResidentDensePredictor", "engine_of", "predict_dense_to_kd",
            "shrink_tile_shape"]
 
 
@@ -72,6 +72,24 @@ def _cdiv(a, b):
 
 def _is_oom(e: Exception) -> bool:
     return isinstance(e, torch.cuda.OutOfMemoryError) or "out of memory" in str(e)
+
+
+def engine_of(model):
+    """The model's engine: (``prepare(params, device)``, the engine's
+    parameters on a device from the params the predictor was given;
+    ``apply(model, engine_params, x)``, x (B, X, Y, Z, 1) uint8 on that device
+    -> packed f32 logits (B, X/px, Y/py, Z/pz, n_classes * pvox)).
+
+    :class:`~..models.unet3d.UNet3D` takes a flax params tree
+    (``params_from_flax``, ``unet_apply_packed``);
+    :class:`~..models.nnunet.NNUNet` its flat PyTorch-layout dict
+    (``models/nnunet_engine.py``)."""
+    if unet_engine.engine_supported(model):
+        return params_from_flax, unet_engine.unet_apply_packed
+    if nnunet_engine.engine_supported(model):
+        return nnunet_engine.device_params, nnunet_engine.nnunet_apply_packed
+    raise TypeError(f"the dense predictor runs UNet3D and NNUNet models, got "
+                    f"{type(model).__name__}")
 
 
 def shrink_tile_shape(tile_shape, halo, patch):
@@ -110,8 +128,10 @@ class DenseTilePredictor:
           (``p >= threshold``) on the card and bit-packed for the download.
 
     ``model``/``params``: the port's :class:`UNet3D` and the flax params
-    tree (as ``models.io.load_model`` returns them). ``device``: ``None``
-    means the CUDA card (required); ``"cpu"`` runs the plain versions.
+    tree (as ``models.io.load_model`` returns them), or an
+    :class:`~..models.nnunet.NNUNet` and its flat dict of arrays (see
+    :func:`engine_of`). ``device``: ``None`` means the CUDA card (required);
+    ``"cpu"`` runs the plain versions.
 
     ``mesh``: a ``parallel.device.DeviceMesh`` with a ``data`` axis: each
     batch splits over it, every data position runs its slice through the
@@ -125,8 +145,7 @@ class DenseTilePredictor:
                  halo: Sequence[int] = (32, 32, 16), batch_size: int = 1,
                  mode: str = "probs", thresholds: Optional[Sequence[float]] = None,
                  device=None, mesh=None):
-        if not engine_supported(model):
-            raise TypeError(f"the dense predictor runs UNet3D models, got {type(model).__name__}")
+        prepare, self._apply = engine_of(model)
         if mode not in ("probs", "masks"):
             raise ValueError(f"unknown mode {mode!r}")
         self.device = default_device(device)
@@ -152,15 +171,16 @@ class DenseTilePredictor:
         self._on = {}
         with tracing.span("predictor.build", replicas=n_data):
             for d in dict.fromkeys(self._replicas + [home]):
-                self._on[d] = (params_from_flax(params, d), place(thr, d), place(bits, d))
+                self._on[d] = (prepare(params, d), place(thr, d), place(bits, d))
         self._home = home
         ts = tuple(int(t) for t in self.tile_shape)
         h = tuple(int(x) for x in self.halo)
         if not (np.all(self.tile_shape % self.patch == 0) and np.all(self.halo % self.patch == 0)):
             raise ValueError("tile_shape and halo must be divisible by the model patch "
                              f"(got {ts}, {h}, patch {tuple(self.patch)})")
-        if (self._pvox * n_classes) % 8:
-            raise ValueError("n_classes * patch voxels must be a multiple of 8")
+        if (self._pvox * n_classes) % (8 if mode == "masks" else 4):
+            raise ValueError("n_classes * patch voxels must be a multiple of 4 (probs) or of 8 "
+                             "(masks)")
         self._in_shape = (self.batch_size,) + tuple(np.add(ts, np.multiply(2, h)))
 
     @property
@@ -190,7 +210,7 @@ class DenseTilePredictor:
         hp = self.halo // self.patch
         b = int(x.shape[0])
         with tracing.span("engine.forward", device=x.device, batch=b):
-            lg = unet_apply_packed(self.model, params, x[..., None])
+            lg = self._apply(self.model, params, x[..., None])
         # the kernel sets fused_tiles to the tiles it took
         with tracing.span("engine.head", device=x.device, batch=b, fused_tiles=0):
             return dense_head(lg, hp, tsp, self.n_classes, self._pvox, self.mode, thr,

@@ -33,7 +33,7 @@ NVCC_FLAGS = [
     "-lineinfo",
 ]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 # source name -> {C function: (argtypes, restype)}
 SOURCES: Dict[str, Dict[str, tuple]] = {
@@ -53,6 +53,11 @@ SOURCES: Dict[str, Dict[str, tuple]] = {
     "head": {
         "dense_head_launch": ([_P] * 3 + [_I] * 15 + [_P], _I),
         "dense_head_error_string": ([_I], ctypes.c_char_p),
+    },
+    "instnorm": {
+        "instnorm_workspace": ([_I, _L, _I], _L),
+        "instnorm_launch": ([_P] * 6 + [_I, _L, _I, _F, _F, _P], _I),
+        "instnorm_error_string": ([_I], ctypes.c_char_p),
     },
 }
 

@@ -9,7 +9,13 @@
 //                                    extents: pad low 0, high 1);
 //   * conv_transpose2x_bias  (:261) flax ConvTranspose (SAME, k3, s2) + bias as
 //                                    8 sub-pixel output phases.
-// (Only the fallback named below stays in conv3d.cu.)
+// (Only the fallback named below stays in conv3d.cu.) And nnU-Net's forms,
+// which no Pallas kernel has: the stride-2 conv padded (1, 1) (mode 3: the
+// stride-2 conv's halo units shifted down one voxel, TMA's zero fill the low
+// pad), the kernel-2 stride-2 transpose (mode 4: the transpose's machinery
+// with one tap a phase and no halo), and a Cout of 320 (bias epilogue only:
+// wgmma's N stops at 256, so two blocks take 160 channels each of a brick,
+// their weight images packed one after the other).
 //
 // Bound on the H100: at the main-path widths the convs do ~27*Cout/2 FLOP per
 // input byte, far above the ~295 FLOP/byte ridge, so tensor-core operations
@@ -146,7 +152,13 @@ constexpr int TAP_OFFSET = 8 * (2 * MAX_STAGES + 2 * MAX_HALO_BUFS + 1);  // beh
 constexpr int BAR_BYTES = TAP_OFFSET + 120;  // 640: mbarriers, then the block's 27 taps
 constexpr int SMEM_LIMIT = 232448;
 
-enum Mode { MODE_SAME = 0, MODE_DOWN = 1, MODE_UP = 2 };
+enum Mode { MODE_SAME = 0, MODE_DOWN = 1, MODE_UP = 2, MODE_DOWN_PAD = 3, MODE_UP2 = 4 };
+// the stride-2 convs (one reads x[2o + d], the other x[2o + d - 1]) and the
+// stride-2 transposes (k3 and k2) share their machinery
+__host__ __device__ constexpr bool is_down(int mode) {
+  return mode == MODE_DOWN || mode == MODE_DOWN_PAD;
+}
+__host__ __device__ constexpr bool is_up(int mode) { return mode == MODE_UP || mode == MODE_UP2; }
 enum Epi { EPI_BIAS = 0, EPI_LN_GELU = 1 };
 
 struct Args {
@@ -327,6 +339,31 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t da, uint64_t 
         "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(1));
 }
+__device__ __forceinline__ void wgmma_ss(float (&d)[80], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79},"
+      "%80, %81, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
+        "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "l"(da), "l"(db), "r"(1));
+}
 __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
@@ -341,19 +378,21 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
 
 // ------------------------------------------------------------ geometry
 // Halo of a brick of BX x 8 x 8 rows. SAME reads x[r + d - 1], d in 0..2; the
-// transpose reads x[u - 1] (tap 0 of an even output phase) or x[u] (taps 1, 2).
-// The stride-2 conv reads x[2r + d]: its halo is one of the eight input phases
-// x[2h + p] (p = d % 2), which tap d reads at h = r + d / 2, so that
-// consecutive rows stay 16 bytes apart; one halo unit per phase and slice.
+// transpose reads x[u - 1] (tap 0 of an even output phase) or x[u] (taps 1, 2);
+// the k2 transpose reads x[u] alone (no halo).
+// The stride-2 conv reads x[2r + d] (x[2r + d - 1] padded low by 1): its halo
+// is one of the eight input phases x[2h + p] (p = d % 2; shifted by one voxel
+// when padded low), which tap d reads at h = r + d / 2, so that consecutive
+// rows stay 16 bytes apart; one halo unit per phase and slice.
 template <int MODE, int BX>
 struct Geo {
-  static constexpr int E = MODE == MODE_SAME ? 2 : 1;
+  static constexpr int E = MODE == MODE_SAME ? 2 : MODE == MODE_UP2 ? 0 : 1;
   static constexpr int HX = BX + E, HY = TY + E, HZ = TZ + E;
   static constexpr int HP = HX * HY * HZ;
   // channel-group plane stride in 16-byte units, 2 mod 8: the four planes a
   // loader quad writes fall on different banks
   // (the stride-2 conv's units arrive by TMA, which wants 128-byte aligned planes)
-  static constexpr int PS = MODE == MODE_DOWN ? (HP + 7) / 8 * 8 : HP + (10 - HP % 8) % 8;
+  static constexpr int PS = is_down(MODE) ? (HP + 7) / 8 * 8 : HP + (10 - HP % 8) % 8;
   static constexpr int HALO_BYTES = 4 * PS * 16;
 };
 
@@ -387,14 +426,30 @@ __device__ __forceinline__ int phase_tap0(int phase) {
   return (int)((0x1A181612100C0800ull >> (8 * phase)) & 0xFFu);
 }
 
+// The k2 transpose: one tap a phase, the phase's own 2x2x2 kernel entry.
+template <int MODE>
+__device__ __forceinline__ int phase_ntaps(int phase) {
+  return MODE == MODE_UP2 ? 1 : phase_taps(phase);
+}
+template <int MODE>
+__device__ __forceinline__ int phase_first(int phase) {
+  return MODE == MODE_UP2 ? phase : phase_tap0(phase);
+}
+
 // Entry i of the block's tap list (the eight phases of the transpose or of the
-// stride-2 conv's input one after the other, 27 entries in every mode) -> flat
-// weight tap t and halo offset in 16-byte units. A phase bit p of an axis
-// takes tap d = 1 (p = 1) or d in {0, 2} (p = 0); the transpose reads it at
-// offset d > 0, the stride-2 conv at d / 2.
+// stride-2 conv's input one after the other, 27 entries in every mode but the
+// k2 transpose's 8) -> flat weight tap t and halo offset in 16-byte units. A
+// phase bit p of an axis takes tap d = 1 (p = 1) or d in {0, 2} (p = 0); the
+// transpose reads it at offset d > 0, the stride-2 conv at d / 2. The k2
+// transpose's phase i reads weight tap i at offset 0.
 template <int MODE, int HY, int HZ>
 __device__ __forceinline__ void tap_entry(int i, int& t, int& delta) {
   int dx, dy, dz, ox, oy, oz;
+  if (MODE == MODE_UP2) {
+    t = i;
+    delta = 0;
+    return;
+  }
   if (MODE != MODE_SAME) {
     int phase = 0, ti = i;
     while (ti >= phase_taps(phase)) ti -= phase_taps(phase++);
@@ -441,20 +496,32 @@ struct Ring {
 // Persistent: block k walks over bricks k, k + gridDim.x, ...; the rings run
 // on across bricks, so the producers load the next brick's first halo slices
 // and weight stages while the consumers are in the epilogue of this one.
-template <int MODE, int COUT, int MT>
+// NSPL > 1: the output channels split over NSPL blocks, COUT each (bias
+// epilogue only); block k computes part k % NSPL of the bricks k / NSPL,
+// k / NSPL + gridDim.x / NSPL, ...
+template <int MODE, int COUT, int MT, int NSPL = 1>
 __global__ void __launch_bounds__(NTHREADS, 1) conv3d_wgmma_kernel(const __grid_constant__ Args a) {
   constexpr int BX = 2 * MT;
   using G = Geo<MODE, BX>;
   constexpr int HY = G::HY, HZ = G::HZ, HP = G::HP, PS = G::PS;
   constexpr int NACC = COUT / 2;
-  constexpr int NEPI = MODE == MODE_UP ? 8 : 1;    // epilogues (output phases) per brick
-  constexpr int NIN = MODE == MODE_DOWN ? 8 : 1;   // halo units (input phases) per slice
+  constexpr int NEPI = is_up(MODE) ? 8 : 1;     // epilogues (output phases) per brick
+  constexpr int NIN = is_down(MODE) ? 8 : 1;    // halo units (input phases) per slice
+  constexpr int NTAPS = MODE == MODE_UP2 ? 8 : 27;  // weight taps
+  constexpr int LO = MODE == MODE_UP2 ? 0 : 1;  // halo rows below the brick
+  constexpr int PLO = MODE == MODE_DOWN_PAD ? 1 : 0;  // the stride-2 conv's low pad
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L = make_layout(G::HALO_BYTES, a.nhb, COUT, a.nst, a.nhp);
   const int nst = a.nst;
   // all slices of the brick stay in shared memory (transpose): loaded once per
-  // brick, used by all eight phases
-  const bool resident = MODE == MODE_UP && a.nhb > 2;
+  // brick, used by all eight phases; the k2 transpose always keeps them
+  const bool resident = MODE == MODE_UP2 || (MODE == MODE_UP && a.nhb > 2);
+  // this block's part of the output channels, and the bricks it walks
+  const int part = NSPL > 1 ? (int)(blockIdx.x % NSPL) : 0;
+  const int brick0 = NSPL > 1 ? (int)(blockIdx.x / NSPL) : (int)blockIdx.x;
+  const int bstep = NSPL > 1 ? (int)(gridDim.x / NSPL) : (int)gridDim.x;
+  const __nv_bfloat16* wp = NSPL > 1 ? a.wp + (size_t)part * NTAPS * ((a.cin + KC - 1) / KC) * KC * COUT
+                                     : a.wp;
 
   const uint32_t sbase = smem_u32(smem);
   const uint32_t bar_wfull = sbase, bar_wempty = sbase + 8 * MAX_STAGES;
@@ -470,8 +537,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) conv3d_wgmma_kernel(const __grid_
   const int nk = (a.cin + KC - 1) / KC;
 
   for (int c = tid; c < COUT; c += NTHREADS) {
-    s_bias[c] = a.bias[c];
-    if (MODE == MODE_SAME && a.epi == EPI_LN_GELU) {
+    s_bias[c] = a.bias[part * COUT + c];
+    if (MODE == MODE_SAME && NSPL == 1 && a.epi == EPI_LN_GELU) {
       s_g[c] = a.ln_g[c];
       s_b[c] = a.ln_b[c];
     }
@@ -487,7 +554,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) conv3d_wgmma_kernel(const __grid_
       mbar_init(bar_wempty + 8 * i, NCONS / 32);
     }
     for (int i = 0; i < a.nhb; ++i) {
-      mbar_init(bar_hfull + 8 * i, MODE == MODE_DOWN ? 1 : NHALO_THREADS);
+      mbar_init(bar_hfull + 8 * i, is_down(MODE) ? 1 : NHALO_THREADS);
       mbar_init(bar_hempty + 8 * i, NCONS / 32);
     }
     mbar_init(bar_head, 1);
@@ -509,13 +576,13 @@ __global__ void __launch_bounds__(NTHREADS, 1) conv3d_wgmma_kernel(const __grid_
       long long p_wait = 0;
       TICK(p_all);
 #endif
-      for (int brick = blockIdx.x; brick < a.nbricks; brick += gridDim.x) {
+      for (int brick = brick0; brick < a.nbricks; brick += bstep) {
         for (int po = 0; po < NEPI; ++po) {
           for (int kc = 0; kc < nk; ++kc) {
             for (int pi = 0; pi < NIN; ++pi) {
-              const int phase = MODE == MODE_UP ? po : pi;
-              const int tap0 = MODE == MODE_SAME ? 0 : phase_tap0(phase);
-              const int ntap = MODE == MODE_SAME ? 27 : phase_taps(phase);
+              const int phase = is_up(MODE) ? po : pi;
+              const int tap0 = MODE == MODE_SAME ? 0 : phase_first<MODE>(phase);
+              const int ntap = MODE == MODE_SAME ? 27 : phase_ntaps<MODE>(phase);
               for (int ti = 0; ti < ntap; ++ti) {
                 TICK(p0);
                 mbar_wait(bar_wempty + 8 * r.i, r.par);
@@ -523,7 +590,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) conv3d_wgmma_kernel(const __grid_
                 const int t = s_tap[tap0 + ti] >> 16;
                 mbar_expect_tx(bar_wfull + 8 * r.i, L.stage_bytes);
                 bulk_g2s(sbase + L.w + r.i * L.stage_bytes,
-                         a.wp + ((size_t)t * nk + kc) * (KC * COUT), L.stage_bytes,
+                         wp + ((size_t)t * nk + kc) * (KC * COUT), L.stage_bytes,
                          bar_wfull + 8 * r.i);
                 r.next(nst);
               }
@@ -534,15 +601,15 @@ __global__ void __launch_bounds__(NTHREADS, 1) conv3d_wgmma_kernel(const __grid_
 #ifdef CONV3D_TIMING
       if (blockIdx.x == 0) { g_dbg[20] = clock64() - p_all; g_dbg[21] = p_wait; }
 #endif
-    } else if (MODE == MODE_DOWN && tid == 32) {
+    } else if (is_down(MODE) && tid == 32) {
       // The stride-2 conv: one unit = one input phase (px, py, pz) of a
-      // 32-channel slice, x[2h + p] for h in a (BX + 1) x 9 x 9 halo, as four
-      // TMA boxes (one per 8-channel group) of every second voxel. A unit that
-      // reaches past the input's end gets zeros there: the high pad, and the
-      // channel padding past Cin. No thread computes an address.
+      // 32-channel slice, x[2h + p - PLO] for h in a (BX + 1) x 9 x 9 halo, as
+      // four TMA boxes (one per 8-channel group) of every second voxel. A unit
+      // that reaches past either end of the input gets zeros there: the pads,
+      // and the channel padding past Cin. No thread computes an address.
       constexpr uint32_t BOX = (BX + 1) * 81 * 16;
       Ring r{0, 1u};
-      for (int brick = blockIdx.x; brick < a.nbricks; brick += gridDim.x) {
+      for (int brick = brick0; brick < a.nbricks; brick += bstep) {
         int blk = brick;
         const int bz = blk % a.nbz; blk /= a.nbz;
         const int by = blk % a.nby; blk /= a.nby;
@@ -553,8 +620,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) conv3d_wgmma_kernel(const __grid_
             const uint32_t bar = bar_hfull + 8 * r.i;
             const uint32_t dst = sbase + L.halo + r.i * G::HALO_BYTES;
             mbar_expect_tx(bar, 4 * BOX);
-            const int x0 = 2 * bx * BX + ((pi >> 2) & 1), y0 = 2 * by * TY + ((pi >> 1) & 1);
-            const int z0 = 2 * bz * TZ + (pi & 1);
+            const int x0 = 2 * bx * BX + ((pi >> 2) & 1) - PLO;
+            const int y0 = 2 * by * TY + ((pi >> 1) & 1) - PLO;
+            const int z0 = 2 * bz * TZ + (pi & 1) - PLO;
 #pragma unroll
             for (int v = 0; v < 4; ++v)
               tma_5d(dst + v * PS * 16, &a.tmap, kc * KC + v * 8, z0, y0, x0, blk, bar);
@@ -562,16 +630,16 @@ __global__ void __launch_bounds__(NTHREADS, 1) conv3d_wgmma_kernel(const __grid_
           }
         }
       }
-    } else if (MODE != MODE_DOWN && tid >= 32) {
+    } else if (!is_down(MODE) && tid >= 32) {
       const int ht = tid - 32;
       Ring r{0, 1u};
-      for (int brick = blockIdx.x; brick < a.nbricks; brick += gridDim.x) {
+      for (int brick = brick0; brick < a.nbricks; brick += bstep) {
         int blk = brick;
         const int bz = blk % a.nbz; blk /= a.nbz;
         const int by = blk % a.nby; blk /= a.nby;
         const int bx = blk % a.nbx; blk /= a.nbx;
         const __nv_bfloat16* xb = a.x + (size_t)blk * a.X * a.Y * a.Z * a.cin;
-        const int hx0 = bx * BX - 1, hy0 = by * TY - 1, hz0 = bz * TZ - 1;
+        const int hx0 = bx * BX - LO, hy0 = by * TY - LO, hz0 = bz * TZ - LO;
         for (int phase = 0; phase < (resident ? 1 : NEPI); ++phase) {
           for (int kc = 0; kc < nk; ++kc) {
             mbar_wait(bar_hempty + 8 * r.i, r.par);
@@ -606,9 +674,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) conv3d_wgmma_kernel(const __grid_
     const int g = lane >> 2, tq = lane & 3;
     constexpr int SROW = COUT * 2 + 16;  // staging row pitch (bytes)
     unsigned char* stage_out = smem + L.out + cwarp * L.out_bytes;
-    const bool ln = MODE == MODE_SAME && a.epi == EPI_LN_GELU;
-    const bool head = MODE == MODE_SAME && a.nhp > 0;
-    const int up = MODE == MODE_UP ? 2 : 1;
+    const bool ln = MODE == MODE_SAME && NSPL == 1 && a.epi == EPI_LN_GELU;
+    const bool head = MODE == MODE_SAME && NSPL == 1 && a.nhp > 0;
+    const int up = is_up(MODE) ? 2 : 1;
     const int OY = up * a.Y, OZ = up * a.Z;
 
     float acc[MT][NACC];
@@ -620,7 +688,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) conv3d_wgmma_kernel(const __grid_
     TICK(t_all);
 #endif
 
-    for (int brick = blockIdx.x; brick < a.nbricks; brick += gridDim.x) {
+    for (int brick = brick0; brick < a.nbricks; brick += bstep) {
       int blk = brick;
       const int bz = blk % a.nbz; blk /= a.nbz;
       const int by = blk % a.nby; blk /= a.nby;
@@ -636,9 +704,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) conv3d_wgmma_kernel(const __grid_
 
         for (int kc = 0; kc < nk; ++kc) {
           for (int pi = 0; pi < NIN; ++pi) {
-            const int phase = MODE == MODE_UP ? po : pi;
-            const int tap0 = MODE == MODE_SAME ? 0 : phase_tap0(phase);
-            const int ntap = MODE == MODE_SAME ? 27 : phase_taps(phase);
+            const int phase = is_up(MODE) ? po : pi;
+            const int tap0 = MODE == MODE_SAME ? 0 : phase_first<MODE>(phase);
+            const int ntap = MODE == MODE_SAME ? 27 : phase_ntaps<MODE>(phase);
             // a resident slice is waited for in the first phase and kept until the last
             TICK(q0);
             if (!resident || po == 0) mbar_wait(bar_hfull + 8 * rh.i, rh.par);
@@ -781,10 +849,10 @@ __global__ void __launch_bounds__(NTHREADS, 1) conv3d_wgmma_kernel(const __grid_
               const int ry = qy0 + (sr >> 3), rz = r0z + (sr & 7);
               if (qx < a.X && ry < a.Y && rz < a.Z) {
                 const size_t orow =
-                    (((size_t)b * (up * a.X) + up * qx + (MODE == MODE_UP ? px : 0)) * OY +
-                     up * ry + (MODE == MODE_UP ? py : 0)) * OZ + up * rz +
-                    (MODE == MODE_UP ? pz : 0);
-                *reinterpret_cast<uint4*>(o + orow * COUT + ch * 8) =
+                    (((size_t)b * (up * a.X) + up * qx + (is_up(MODE) ? px : 0)) * OY +
+                     up * ry + (is_up(MODE) ? py : 0)) * OZ + up * rz +
+                    (is_up(MODE) ? pz : 0);
+                *reinterpret_cast<uint4*>(o + orow * (NSPL * COUT) + part * COUT + ch * 8) =
                     *reinterpret_cast<const uint4*>(stage_out + sr * SROW + ch * 16);
               }
             }
@@ -896,10 +964,10 @@ __global__ void __launch_bounds__(NTHREADS, 1) conv3d_wgmma_kernel(const __grid_
 // ------------------------------------------------------------ host side
 // Tiles per consumer warpgroup (the brick is 2 * mt x 8 x 8 rows). SAME takes what the accumulators allow; the transpose takes half
 // of it, so that all slices of its smaller halo stay resident at the main-path
-// widths.
+// widths. `cout` is a block's part of the output channels (160 of a split 320).
 inline int tiles_of(int mode, int cout) {
-  if (mode == MODE_SAME) return cout == 256 ? 1 : cout == 128 ? 2 : 4;
-  if (mode == MODE_DOWN) return cout == 256 ? 1 : cout == 128 ? 2 : 4;
+  if (mode == MODE_SAME) return cout >= 160 ? 1 : cout == 128 ? 2 : 4;
+  if (is_down(mode)) return cout >= 160 ? 1 : cout == 128 ? 2 : 4;
   return cout >= 128 ? 1 : 2;
 }
 
@@ -907,11 +975,16 @@ inline int halo_bytes_of(int mode, int mt) {
   if (mode == MODE_SAME)
     return mt == 1 ? Geo<MODE_SAME, 2>::HALO_BYTES
                    : mt == 2 ? Geo<MODE_SAME, 4>::HALO_BYTES : Geo<MODE_SAME, 8>::HALO_BYTES;
-  if (mode == MODE_DOWN)
+  if (is_down(mode))
     return mt == 1 ? Geo<MODE_DOWN, 2>::HALO_BYTES
                    : mt == 2 ? Geo<MODE_DOWN, 4>::HALO_BYTES : Geo<MODE_DOWN, 8>::HALO_BYTES;
+  if (mode == MODE_UP2) return mt == 1 ? Geo<MODE_UP2, 2>::HALO_BYTES : Geo<MODE_UP2, 4>::HALO_BYTES;
   return mt == 1 ? Geo<MODE_UP, 2>::HALO_BYTES : Geo<MODE_UP, 4>::HALO_BYTES;
 }
+
+// Output channels a block computes: a Cout of 320 splits over two blocks
+// (wgmma's N stops at 256), the others stay whole.
+inline int part_of(int cout) { return cout == 320 ? 160 : cout; }
 
 // The stride-2 conv's tensor map: x (B, X, Y, Z, cin) bf16 as dims (cin, Z, Y,
 // X, B), a box of 8 channels x 9 x 9 x (BX + 1) voxels taken at every second
@@ -945,9 +1018,10 @@ int encode_down_map(CUtensorMap* map, const void* x, int B, int X, int Y, int Z,
 
 // Halo buffers and ring depth for one shape: the transpose keeps all slices
 // resident when they fit beside a ring of at least 4 stages, else slices
-// stream through two buffers; the stride-2 conv's eight small input-phase
-// units a slice stream through four; the ring takes what is left, up to 16
-// stages.
+// stream through two buffers; the k2 transpose always keeps them (0 where
+// they do not fit); the stride-2 conv's eight small input-phase units a slice
+// stream through four; the ring takes what is left, up to 16 stages. `cout`
+// is a block's part of the output channels.
 // Returns the dynamic shared memory in bytes, or 0 when not even two stages fit.
 int plan_of(int mode, int cin, int cout, int nhp, int& mt, int& nhb, int& nst) {
   mt = tiles_of(mode, cout);
@@ -958,7 +1032,11 @@ int plan_of(int mode, int cin, int cout, int nhp, int& mt, int& nhb, int& nst) {
   if (mode == MODE_UP && nk > 2 && nk <= MAX_HALO_BUFS &&
       make_layout(hb, nk, cout, 4, nhp).total <= SMEM_LIMIT)
     nhb = nk;
-  if (mode == MODE_DOWN) nhb = 4;
+  if (mode == MODE_UP2) {
+    if (nk > MAX_HALO_BUFS) return 0;
+    nhb = nk;
+  }
+  if (is_down(mode)) nhb = 4;
   const int fixed = make_layout(hb, nhb, cout, 0, nhp).total;
   nst = (SMEM_LIMIT - fixed) / stage;
   if (nst > MAX_STAGES) nst = MAX_STAGES;
@@ -966,7 +1044,7 @@ int plan_of(int mode, int cin, int cout, int nhp, int& mt, int& nhb, int& nst) {
   return fixed + nst * stage;
 }
 
-template <int MODE, int COUT, int MT>
+template <int MODE, int COUT, int MT, int NSPL = 1>
 int launch_one(Args& a, size_t smem, cudaStream_t stream) {
   constexpr int BX = 2 * MT;
   a.nbx = (a.X + BX - 1) / BX;
@@ -983,11 +1061,13 @@ int launch_one(Args& a, size_t smem, cudaStream_t stream) {
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return (int)e;
   }
-  auto kern = conv3d_wgmma_kernel<MODE, COUT, MT>;
+  auto kern = conv3d_wgmma_kernel<MODE, COUT, MT, NSPL>;
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const unsigned grid = (unsigned)(nblk < sms ? nblk : sms);
+  // with a split, every part of a brick in one wave: NSPL blocks a brick
+  const long long want = nblk * NSPL, fit = sms / NSPL * NSPL;
+  const unsigned grid = (unsigned)(want < fit ? want : fit);
   kern<<<grid, NTHREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -997,20 +1077,29 @@ int launch_one(Args& a, size_t smem, cudaStream_t stream) {
 extern "C" {
 
 // Dynamic shared memory (bytes) of the block that takes the shape, or 0 when
-// the wgmma kernel does not take it. mode: 0 SAME, 1 stride 2, 2 transpose.
+// the wgmma kernel does not take it. mode: 0 SAME, 1 stride 2, 2 transpose,
+// 3 stride 2 padded low, 4 k2 transpose; Cout 320 (split over two blocks)
+// with 0, 3 and 4 and no head.
 int conv3d_wgmma_plan(int mode, int cin, int cout, int nh) {
-  if (mode != MODE_SAME && mode != MODE_DOWN && mode != MODE_UP) return 0;
-  if (cout != 32 && cout != 64 && cout != 128 && cout != 256) return 0;
+  if (mode != MODE_SAME && mode != MODE_DOWN && mode != MODE_UP && mode != MODE_DOWN_PAD &&
+      mode != MODE_UP2)
+    return 0;
+  const bool split = cout == 320 && nh == 0 && mode != MODE_DOWN && mode != MODE_UP;
+  if (cout != 32 && cout != 64 && cout != 128 && cout != 256 && !split) return 0;
   if (cin <= 0 || cin % 8 != 0 || nh < 0 || (nh > 0 && mode != MODE_SAME)) return 0;
   int mt, nhb, nst;
-  return plan_of(mode, cin, cout, round_up(nh, HEAD_CHUNK), mt, nhb, nst);
+  return plan_of(mode, cin, part_of(cout), round_up(nh, HEAD_CHUNK), mt, nhb, nst);
 }
 
 // mode: 0 SAME 3x3x3, 1 stride-2 conv (pad low 0, high 1; even extents), 2
-// stride-2 transpose (all eight phases in one block); B, X, Y, Z are the
-// input's extents. epi: 0 bias only, 1 LayerNorm + tanh-GELU (SAME only);
-// nh > 0 adds the f32 head. wp: weights packed (27, ceil(cin / 32), 4, cout,
-// 8); hp: head packed (3, cout / 8, roundup(nh, 32), 8).
+// stride-2 transpose (all eight phases in one block), 3 stride-2 conv padded
+// (1, 1) (out[o] = sum_d W_d x[2o + d - 1]; even extents), 4 kernel-2 stride-2
+// transpose (out[2o + p] = W_p x[o]; all eight phases in one block); B, X, Y,
+// Z are the input's extents. epi: 0 bias only, 1 LayerNorm + tanh-GELU (SAME
+// only, Cout up to 256); nh > 0 adds the f32 head. wp: weights packed (T,
+// ceil(cin / 32), 4, cout, 8), T = 27 taps (8 for mode 4), at Cout 320 the two
+// halves' images one after the other, (2, T, ceil(cin / 32), 4, 160, 8); hp:
+// head packed (3, cout / 8, roundup(nh, 32), 8).
 // Returns a cudaError_t code (0 on success).
 int conv3d_wgmma_launch(int mode, int epi, const void* x, const void* wp, const void* bias,
                         const void* ln_g, const void* ln_b, const void* hp, const void* head_b,
@@ -1018,7 +1107,8 @@ int conv3d_wgmma_launch(int mode, int epi, const void* x, const void* wp, const 
                         void* stream) {
   if (mode != MODE_SAME && (epi != EPI_BIAS || nh != 0)) return (int)cudaErrorInvalidValue;
   if (nh > 0 && epi != EPI_LN_GELU) return (int)cudaErrorInvalidValue;
-  if (mode == MODE_DOWN && (X % 2 || Y % 2 || Z % 2)) return (int)cudaErrorInvalidValue;
+  if (cout == 320 && epi != EPI_BIAS) return (int)cudaErrorInvalidValue;
+  if (is_down(mode) && (X % 2 || Y % 2 || Z % 2)) return (int)cudaErrorInvalidValue;
   if (conv3d_wgmma_plan(mode, cin, cout, nh) == 0) return (int)cudaErrorInvalidValue;
   Args a;
   a.x = static_cast<const __nv_bfloat16*>(x);
@@ -1029,16 +1119,37 @@ int conv3d_wgmma_launch(int mode, int epi, const void* x, const void* wp, const 
   a.hp = static_cast<const __nv_bfloat16*>(hp);
   a.head_b = static_cast<const float*>(head_b);
   a.out = out;
-  const int s = mode == MODE_DOWN ? 2 : 1;
+  const int s = is_down(mode) ? 2 : 1;
   a.B = B; a.X = X / s; a.Y = Y / s; a.Z = Z / s;
   a.cin = cin; a.cout = cout; a.nh = nh; a.nhp = round_up(nh, HEAD_CHUNK); a.epi = epi;
   int mt;
-  const size_t smem = (size_t)plan_of(mode, cin, cout, a.nhp, mt, a.nhb, a.nst);
-  if (mode == MODE_DOWN) {
+  const size_t smem = (size_t)plan_of(mode, cin, part_of(cout), a.nhp, mt, a.nhb, a.nst);
+  if (is_down(mode)) {
     const int rc = encode_down_map(&a.tmap, x, B, X, Y, Z, cin, 2 * mt);
     if (rc != 0) return rc;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cout == 320) {
+    if (mode == MODE_SAME) return launch_one<MODE_SAME, 160, 1, 2>(a, smem, st);
+    if (mode == MODE_DOWN_PAD) return launch_one<MODE_DOWN_PAD, 160, 1, 2>(a, smem, st);
+    return launch_one<MODE_UP2, 160, 1, 2>(a, smem, st);
+  }
+  if (mode == MODE_DOWN_PAD) {
+    switch (cout) {
+      case 32: return launch_one<MODE_DOWN_PAD, 32, 4>(a, smem, st);
+      case 64: return launch_one<MODE_DOWN_PAD, 64, 4>(a, smem, st);
+      case 128: return launch_one<MODE_DOWN_PAD, 128, 2>(a, smem, st);
+      default: return launch_one<MODE_DOWN_PAD, 256, 1>(a, smem, st);
+    }
+  }
+  if (mode == MODE_UP2) {
+    switch (cout) {
+      case 32: return launch_one<MODE_UP2, 32, 2>(a, smem, st);
+      case 64: return launch_one<MODE_UP2, 64, 2>(a, smem, st);
+      case 128: return launch_one<MODE_UP2, 128, 1>(a, smem, st);
+      default: return launch_one<MODE_UP2, 256, 1>(a, smem, st);
+    }
+  }
   if (mode == MODE_SAME) {
     switch (cout) {
       case 32: return launch_one<MODE_SAME, 32, 4>(a, smem, st);

@@ -9,8 +9,9 @@
 // softmax over the class axis (at a stride of pvox), `* 255` and round, and
 // the cast (or the compare and the bit-pack).
 //
-// Input: the engine's logits (B, SX, SY, SZ, N), N = C * pvox, channel
-// c * pvox + v = class c at patch voxel v, contiguous. Output: the cropped
+// Input: the engine's logits (B, SX, SY, SZ, N), N = C * pvox (a multiple of
+// 4; of 8 for masks), channel c * pvox + v = class c at patch voxel v,
+// contiguous. Output: the cropped
 // (B, sx, sy, sz, N) uint8 probabilities, or (B, sx, sy, sz, N / 8) uint8
 // masks whose byte j, bit k holds channel 8j + k.
 //
@@ -36,8 +37,8 @@
 //     then lie on distinct banks (organelles: S = 40, not 32);
 //   * each thread then owns (position, v) pairs, v fastest, and reads its C
 //     logits at a stride of pvox; the template specialisations for (C, pvox)
-//     = (4, 8) and (3, 32) keep them in registers, the generic loop reads
-//     shared memory once a class and pass;
+//     = (4, 8), (3, 32) and (4, 1) (nnU-Net) keep them in registers, the
+//     generic loop reads shared memory once a class and pass;
 //   * the uint8 result is assembled in shared memory (masks: 32-bit atomicOr
 //     of the bits) and written as 16-byte vectors where the piece's output
 //     is 16-byte aligned (both configurations), else in 4-byte or 1-byte
@@ -108,8 +109,8 @@ dense_head_kernel(const float* __restrict__ lg, const float* __restrict__ thr,
   const int z0 = zc * d.P;
   const int np = min(d.P, d.sz - z0);
 
-  // the piece's logits: np * N contiguous floats (N % 8 == 0, so every
-  // position starts 32-byte aligned)
+  // the piece's logits: np * N contiguous floats (N % 4 == 0, so every
+  // position starts 16-byte aligned)
   const long long pin = ((b * d.SX + d.hx + x) * d.SY + d.hy + y) * d.SZ + d.hz + z0;
   const float* src = lg + pin * N;
   const int vpp = N / 4;
@@ -188,6 +189,7 @@ int dispatch(const float* lg, const float* thr, unsigned char* out, const Dims& 
              long long grid, int smem, cudaStream_t stream) {
   if (d.C == 4 && d.pvox == 8) return launch<4, 8, MODE>(lg, thr, out, d, grid, smem, stream);
   if (d.C == 3 && d.pvox == 32) return launch<3, 32, MODE>(lg, thr, out, d, grid, smem, stream);
+  if (d.C == 4 && d.pvox == 1) return launch<4, 1, MODE>(lg, thr, out, d, grid, smem, stream);
   return launch<0, 0, MODE>(lg, thr, out, d, grid, smem, stream);
 }
 
@@ -202,7 +204,7 @@ int dense_head_launch(const void* lg, const void* thr, void* out, int B, int SX,
                       int C, int pvox, int hx, int hy, int hz, int sx, int sy, int sz, int mode,
                       int P, int S, void* stream) {
   const long long N = static_cast<long long>(C) * pvox;
-  if (B < 1 || C < 1 || pvox < 1 || N % 8 || sx < 1 || sy < 1 || sz < 1 || hx < 0 || hy < 0 ||
+  if (B < 1 || C < 1 || pvox < 1 || N % 4 || (mode == MODE_MASKS && N % 8) || sx < 1 || sy < 1 || sz < 1 || hx < 0 || hy < 0 ||
       hz < 0 || hx + sx > SX || hy + sy > SY || hz + sz > SZ || P < 1 || P > sz || S < N ||
       S % 4 || (mode != MODE_PROBS && mode != MODE_MASKS) || (mode == MODE_MASKS && !thr))
     return (int)cudaErrorInvalidValue;

@@ -66,8 +66,9 @@ def _check_args(lg, hp, tsp, n_classes, pvox, mode, thr, bit_weights):
     if lg.dim() != 5 or lg.shape[-1] != n:
         raise ValueError(f"expected logits (B, SX, SY, SZ, {n_classes} * {pvox}), got "
                          f"{tuple(lg.shape)}")
-    if n % 8:
-        raise ValueError("n_classes * patch voxels must be a multiple of 8")
+    if n % (8 if mode == "masks" else 4):
+        raise ValueError("n_classes * patch voxels must be a multiple of 4 (probs) or of 8 "
+                         f"(masks), got {n_classes} x {pvox} in {mode} mode")
     if len(hp) != 3 or len(tsp) != 3 or min(hp) < 0 or min(tsp) < 1 or any(
             h + t > s for h, t, s in zip(hp, tsp, lg.shape[1:4])):
         raise ValueError(f"crop start {hp}, extent {tsp} outside logits {tuple(lg.shape)}")
@@ -83,7 +84,8 @@ def dense_head(lg: torch.Tensor, hp: Sequence[int], tsp: Sequence[int], n_classe
     Args:
         lg: (B, SX, SY, SZ, C * pvox) f32 packed logits, channel
             ``c * pvox + v`` = class c at patch voxel v (as
-            ``models.unet_engine.unet_apply_packed`` returns them).
+            ``models.unet_engine.unet_apply_packed`` returns them); C * pvox
+            a multiple of 4 (probs) or 8 (masks).
         hp, tsp: crop start and extent in patched positions.
         n_classes, pvox: C and the patch's voxels.
         mode: ``"probs"`` or ``"masks"``.

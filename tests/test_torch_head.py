@@ -123,7 +123,11 @@ def test_head_rejects_what_it_does_not_take():
         H.dense_head(lg, (1, 1, 3), (4, 4, 4), 4, 8)
     with pytest.raises(ValueError, match="expected logits"):
         H.dense_head(lg, (1, 1, 1), (4, 4, 4), 3, 8)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        H.dense_head(torch.zeros((1, 6, 6, 6, 12)), (1, 1, 1), (4, 4, 4), 3, 4)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        H.dense_head(torch.zeros((1, 6, 6, 6, 6)), (1, 1, 1), (4, 4, 4), 3, 2)
+    with pytest.raises(ValueError, match="of 8"):
+        H.dense_head(torch.zeros((1, 6, 6, 6, 12)), (1, 1, 1), (4, 4, 4), 3, 4, "masks",
+                     torch.full((3, 1), 0.5), torch.tensor([1, 2, 4, 8, 16, 32, 64, 128],
+                                                           dtype=torch.uint8))
     with pytest.raises(ValueError, match="thr"):
         H.dense_head(lg, (1, 1, 1), (4, 4, 4), 4, 8, "masks")

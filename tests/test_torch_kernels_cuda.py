@@ -140,7 +140,8 @@ def test_predictor_kernel_path_matches_cpu_path(dev):
     C.reset_launch_counts()
     got = DenseTilePredictor(model, params, device=dev, **kw).predict_array(vol)
     assert C.LAUNCHES == {"conv3x3x3_ln_gelu": 10, "conv_down2x_bias": 2,
-                          "conv_transpose2x_bias": 2, "detect_cs_columns": 0, "dense_head": 1}
+                          "conv_transpose2x_bias": 2, "conv_transpose2x2_bias": 0,
+                          "detect_cs_columns": 0, "dense_head": 1, "instance_norm": 0}
     ref = DenseTilePredictor(model, params, device="cpu", **kw).predict_array(vol)
     d = np.abs(got.astype(np.int16) - ref.astype(np.int16))
     assert np.mean(d <= 2) >= 0.999
@@ -214,6 +215,42 @@ def test_head_kernel_matches_plain_version(dev, name, mode, kind, batch):
     d = (got.int() - ref.int()).abs()
     off = int((d > 0).sum())
     assert off == 0, f"{off} of {d.numel()} bytes off the plain head, at most {int(d.max())}"
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("kind", ["normal", "large", "equal", "half"])
+def test_head_kernel_takes_nnunets_four_logits_a_voxel(dev, kind, batch):
+    """nnU-Net's head: 4 classes, one voxel a position (C * pvox = 4, probs
+    only), at its crop of a 128^3 window and a ragged one.
+
+    Byte for byte against PyTorch's spatial softmax over the classes, which
+    sums each position's class exps in order as the kernel does. Within one
+    step of the plain head: with one voxel a position the class axis is
+    innermost, and there the card's softmax sums the exps as a tree, which
+    can round p * 255 across a half. A softmax over the wrong axis is many
+    steps off and fails that check."""
+    from _torch_helpers import head_logits
+
+    from syconn_tpu_torch.ops import head as H
+
+    def u8(p):
+        return torch.round(p * 255.0).to(torch.uint8)
+
+    for tile, halo in (((96, 96, 96), (16, 16, 16)), ((12, 10, 7), (1, 2, 3))):
+        lg = head_logits(batch, tile, halo, (1, 1, 1), 4, seed=5, kind=kind).to(dev)
+        hp, tsp = halo, tile
+        C.reset_launch_counts()
+        got = H.dense_head(lg, hp, tsp, 4, 1, "probs")
+        ref = H.dense_head_ref(lg, hp, tsp, 4, 1, "probs")
+        crop = lg[:, hp[0]:hp[0] + tsp[0], hp[1]:hp[1] + tsp[1], hp[2]:hp[2] + tsp[2]]
+        rows = crop.reshape(batch, -1, 4)
+        in_order = u8(torch.softmax(rows.transpose(1, 2), dim=1).transpose(1, 2))
+        wrong_axis = u8(torch.softmax(rows, dim=1))
+        torch.cuda.synchronize()
+        assert C.LAUNCHES["dense_head"] == 1
+        assert torch.equal(got.reshape(batch, -1, 4), in_order)
+        assert int((got.int() - ref.int()).abs().max()) <= 1
+        assert int((wrong_axis.int() - ref.reshape(batch, -1, 4).int()).abs().max()) > 1
 
 
 def test_head_kernel_rejects_what_it_does_not_take(dev):
@@ -767,3 +804,116 @@ def test_train_step_card_matches_cpu(dev, kind):
     rel = np.concatenate([(np.abs(g - c) / np.maximum(np.abs(c), 1e-3)).ravel()
                           for g, c in zip(leaves(pg), leaves(pc))])
     assert np.median(rel) < 1e-6
+
+
+# ------------------------------------------------------------ nnU-Net's forms
+# case -> (kernel, x shape (B, X, Y, Z, Cin), Cout): each layer form of the
+# nnunet_fullres cell at its size (128^3 windows, batch 4, except where the
+# plain f32 version of a full-resolution layer would take long), and the
+# tiling's corners (ragged extents, Cin not a multiple of 32)
+NNUNET_CASES = {
+    "stem_8_32": ("same", (2, 128, 128, 128, 8), 32),
+    "same_320_320_8": ("same", (4, 8, 8, 8, 320), 320),
+    "same_320_320_4": ("same", (4, 4, 4, 4, 320), 320),
+    "same_640_320": ("same", (4, 8, 8, 8, 640), 320),
+    "same_320_ragged": ("same", (1, 5, 9, 11, 40), 320),
+    "down_pad_32_64": ("down_pad", (2, 128, 128, 128, 32), 64),
+    "down_pad_64_128": ("down_pad", (4, 64, 64, 64, 64), 128),
+    "down_pad_128_256": ("down_pad", (4, 32, 32, 32, 128), 256),
+    "down_pad_256_320": ("down_pad", (4, 16, 16, 16, 256), 320),
+    "down_pad_320_320": ("down_pad", (4, 8, 8, 8, 320), 320),
+    "down_pad_ragged": ("down_pad", (2, 22, 14, 10, 40), 32),
+    "up2_320_320": ("up2", (4, 4, 4, 4, 320), 320),
+    "up2_320_256": ("up2", (4, 8, 8, 8, 320), 256),
+    "up2_256_128": ("up2", (4, 16, 16, 16, 256), 128),
+    "up2_128_64": ("up2", (4, 32, 32, 32, 128), 64),
+    "up2_64_32": ("up2", (2, 64, 64, 64, 64), 32),
+    "up2_ragged": ("up2", (1, 5, 7, 9, 40), 320),
+}
+
+
+@pytest.mark.parametrize("case", list(NNUNET_CASES))
+def test_nnunet_conv_forms_match_plain_versions(dev, case):
+    kernel, shape, cout = NNUNET_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(8)
+    cin = shape[-1]
+    taps = 8 if kernel == "up2" else 27
+    x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((taps, cin, cout), generator=g, device=dev) / (taps * cin) ** 0.5).to(
+        torch.bfloat16)
+    b = (0.1 * torch.randn((cout,), generator=g, device=dev)).to(torch.bfloat16)
+    C.reset_launch_counts()
+    if kernel == "down_pad":
+        got, ref = C.conv_down2x_bias(x, w, b, pad_lo=1), C.conv_down2x_bias_ref(x, w, b, 1)
+    elif kernel == "up2":
+        got, ref = C.conv_transpose2x2_bias(x, w, b), C.conv_transpose2x2_bias_ref(x, w, b)
+    else:
+        got = C.conv3x3x3_ln_gelu(x, w, b, epilogue="bias")
+        ref = C.conv3x3x3_ln_gelu_ref(x, w, b, epilogue="bias")
+    torch.cuda.synchronize()
+    assert sum(C.LAUNCHES.values()) == 1
+    from syconn_tpu_torch.ops.build import library
+
+    plan = C.tile_plan(kernel, cin, cout)
+    mode = {"same": 0, "down_pad": 3, "up2": 4}[kernel]
+    assert library("conv3d_wgmma").conv3d_wgmma_plan(mode, cin, cout, 0) == plan["smem_bytes"]
+    _close(got, ref)
+
+
+# (B, X, Y, Z, C) of every norm of the nnunet_fullres cell, one batch of 4
+NORM_CASES = {"c32": (4, 128, 128, 128, 32), "c64": (4, 64, 64, 64, 64),
+              "c128": (4, 32, 32, 32, 128), "c256": (4, 16, 16, 16, 256),
+              "c320_8": (4, 8, 8, 8, 320), "c320_4": (4, 4, 4, 4, 320),
+              "ragged": (3, 5, 7, 3, 40)}
+
+
+@pytest.mark.parametrize("case", list(NORM_CASES))
+def test_instance_norm_kernel_matches_plain_version(dev, case):
+    from syconn_tpu_torch.ops import instnorm as IN
+
+    shape = NORM_CASES[case]
+    c = shape[-1]
+    g = torch.Generator(device=dev).manual_seed(9)
+    # a mean far off zero against the spread (|mean| / std = 20): a one-pass
+    # E[x^2] - mean^2 over 2M voxels in f32 loses the variance's digits there
+    mu = 20.0 * torch.randn((1, 1, 1, 1, c), generator=g, device=dev)
+    x = (mu + torch.randn(shape, generator=g, device=dev)).to(torch.bfloat16)
+    gamma = 1 + 0.1 * torch.randn((c,), generator=g, device=dev)
+    beta = 0.1 * torch.randn((c,), generator=g, device=dev)
+    C.reset_launch_counts()
+    got = IN.instance_norm_lrelu(x, gamma, beta, 1e-5, 0.01)
+    again = IN.instance_norm_lrelu(x, gamma, beta, 1e-5, 0.01)   # the tickets were reset
+    ref = IN.instance_norm_lrelu_ref(x, gamma, beta, 1e-5, 0.01)
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["instance_norm"] == 4 and torch.equal(got, again)
+    # f32 statistics in another order, an fma: at most one bf16 step apart
+    d = (got.float() - ref.float()).abs()
+    step = ref.float().abs().clamp_min(1e-2) * 2.0 ** -7
+    assert bool((d <= step).all()), float((d / step).max())
+    assert float((got != ref).float().mean()) < 0.02
+
+
+def test_nnunet_forward_matches_the_reference_at_128(dev):
+    """One 128^3 window of the nnunet_fullres configuration through the
+    engine on the kernels and through the plain float32 reference on the
+    card, at the CPU test's limits (``tests/test_torch_nnunet.py``)."""
+    from syconn_tpu_torch.models import nnunet_engine as E
+    from syconn_tpu_torch.models.nnunet import NNUNet
+    from syconn_tpu_torch.models.nnunet_ref import PlainConvUNetRef
+
+    model = NNUNet(n_classes=4, intensity_mean=128.0, intensity_std=40.0)
+    params = model.init_params(11)
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randint(0, 256, (128, 128, 128), generator=g, device=dev, dtype=torch.uint8)
+    C.reset_launch_counts()
+    lg = E.nnunet_apply_packed(model, E.device_params(params, dev), x[None, ..., None])[0]
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["conv3x3x3_ln_gelu"] + C.LAUNCHES["conv_down2x_bias"] == 22
+    assert C.LAUNCHES["conv_transpose2x2_bias"] == 5 and C.LAUNCHES["instance_norm"] == 44
+    ref = PlainConvUNetRef(model).load_params(params).to(dev)(x)
+    lg = lg.permute(3, 0, 1, 2)
+    scale = float(ref.std())
+    d = (lg - ref).abs()
+    p = (torch.round(torch.softmax(lg, 0) * 255) - torch.round(torch.softmax(ref, 0) * 255)).abs()
+    assert float(d.mean()) / scale < 0.02 and float(d.max()) / scale < 0.2
+    assert float(p.mean()) < 0.6 and float(p.max()) <= 6
